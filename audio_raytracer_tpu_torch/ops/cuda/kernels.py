@@ -1,0 +1,244 @@
+"""B1, the closest-hit kernel, and the field layout the kernels share.
+
+``run_closest_hit`` replaces the TPU kernel
+``audio_raytracer_tpu/ops/pallas/kernels.py::closest_hit_kernel``. On a
+CUDA tensor it launches ``csrc/closest_hit.cu``; on a CPU tensor it runs
+``closest_hit_plain``, the same arithmetic as plain tensor ops. There is
+no fallback between the two: a CUDA tensor gets the kernel or an error.
+
+Primitive fields are one float32 table per type (``Fields``), one row per
+primitive, in the column order of ``csrc/fields.cuh``. Target ids are
+stored as the int32 bit pattern of their column.
+
+The plain versions repeat the kernels' arithmetic operation for operation
+(same order, exact reciprocals), so on one device the two agree bit for
+bit except for the order of float sums. They work on ray chunks so their
+[rays, prims] grids stay within a few GB.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from audio_raytracer_tpu_torch.ops.backend import ray_chunks
+from audio_raytracer_tpu_torch.ops.cuda import build
+
+Tensor = torch.Tensor
+INF = float("inf")
+INT_MAX = 2**31 - 1
+
+# Row widths and columns (csrc/fields.cuh).
+SPH_W, AABB_W, OBB_W = 8, 12, 20
+S_R2, S_TGT, S_DENS = 3, 4, 5  # sphere: cx cy cz r2 tgt dens
+A_MISS, A_TGT, A_DENS = 6, 7, 8  # aabb: min xyz, max xyz, miss tgt dens
+O_M, O_MISS, O_TGT, O_DENS = 6, 15, 16, 17  # obb: c xyz, h xyz, m 9, ...
+
+# Float operations per (live ray, primitive) in the B1 loop body, for the
+# op-count bound (the sphere counts only its always-executed part).
+OPS = {"sphere": 19, "aabb": 27, "obb": 69}
+
+
+@dataclasses.dataclass(frozen=True)
+class Fields:
+    """Per-type primitive tables: sph [ns, 8], aabb [na, 12], obb [no, 20]."""
+
+    sph: Tensor
+    aabb: Tensor
+    obb: Tensor
+
+    @property
+    def counts(self) -> tuple[int, int, int]:
+        return self.sph.shape[0], self.aabb.shape[0], self.obb.shape[0]
+
+    @property
+    def total(self) -> int:
+        return sum(self.counts)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * 4 for t in (self.sph, self.aabb, self.obb))
+
+
+# ---------------------------------------------------------------------------
+# Plain building blocks (rays [c, 1] against table columns [n] -> [c, n])
+# ---------------------------------------------------------------------------
+
+
+def ids(tab: Tensor, col: int) -> Tensor:
+    """Target-id column of a table, as int32."""
+    return tab[:, col].contiguous().view(torch.int32)
+
+
+def safe_inv(x: Tensor) -> Tensor:
+    """1 / x with |x| < 1e-12 nudged to +/-1e-12 (ops.intersect._aabb_slab)."""
+    nudge = torch.copysign(torch.full_like(x, 1e-12), x)
+    return 1.0 / torch.where(x.abs() < 1e-12, nudge, x)
+
+
+def slab(mnx, mny, mnz, mxx, mxy, mxz, ix, iy, iz):
+    """(t_near, t_far) from precomputed (bound - origin) terms."""
+    t0x, t1x = mnx * ix, mxx * ix
+    t0y, t1y = mny * iy, mxy * iy
+    t0z, t1z = mnz * iz, mxz * iz
+    mn, mx = torch.minimum, torch.maximum
+    t_near = mx(mx(mn(t0x, t1x), mn(t0y, t1y)), mn(t0z, t1z))
+    t_far = mn(mn(mx(t0x, t1x), mx(t0y, t1y)), mx(t0z, t1z))
+    return t_near, t_far
+
+
+def slab_hit(t_near, t_far):
+    """t_near if > 0 else t_far; +inf on a miss."""
+    miss = (t_near > t_far) | (t_far < 0.0)
+    return torch.where(t_near > 0.0, t_near, t_far).masked_fill(miss, INF)
+
+
+def mat_rotate(tab: Tensor, vx, vy, vz):
+    """Rotate by the 9 matrix columns O_M.. of an OBB table."""
+    m = [tab[:, O_M + k] for k in range(9)]
+    return (m[0] * vx + m[1] * vy + m[2] * vz,
+            m[3] * vx + m[4] * vy + m[5] * vz,
+            m[6] * vx + m[7] * vy + m[8] * vz)
+
+
+def box_terms(fields: Fields, kind: str, ox, oy, oz):
+    """Per-(ray, box) (bound - origin) terms shared by all ray sets: six
+    [c, n] grids, min xyz then max xyz (in the OBB's local frame)."""
+    if kind == "aabb":
+        a = fields.aabb
+        return tuple(a[:, k] - v for k, v in
+                     enumerate((ox, oy, oz, ox, oy, oz)))
+    b = fields.obb
+    lo = mat_rotate(b, ox - b[:, 0], oy - b[:, 1], oz - b[:, 2])
+    h = (b[:, 3], b[:, 4], b[:, 5])
+    return (-h[0] - lo[0], -h[1] - lo[1], -h[2] - lo[2],
+            h[0] - lo[0], h[1] - lo[1], h[2] - lo[2])
+
+
+def box_inv_dirs(fields: Fields, kind: str, dx, dy, dz):
+    """Inverse slab directions of one ray set against each box."""
+    if kind == "aabb":
+        return safe_inv(dx), safe_inv(dy), safe_inv(dz)
+    return tuple(safe_inv(v) for v in mat_rotate(fields.obb, dx, dy, dz))
+
+
+def ray_cols(x: Tensor, c: slice):
+    """[R, 3] -> three [c, 1] columns of the chunk."""
+    return x[c, 0:1], x[c, 1:2], x[c, 2:3]
+
+
+# ---------------------------------------------------------------------------
+# B1: closest hit
+# ---------------------------------------------------------------------------
+
+
+def _sphere_t(sph, ox, oy, oz, dx, dy, dz, a2, a4):
+    ocx, ocy, ocz = ox - sph[:, 0], oy - sph[:, 1], oz - sph[:, 2]
+    b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
+    cc = (ocx * ocx + ocy * ocy + ocz * ocz) - sph[:, S_R2]
+    disc = b * b - a4 * cc
+    hit = disc >= 0.0
+    sq = torch.sqrt(torch.where(hit, disc, 1.0))
+    t0 = (-b - sq) / a2
+    t1 = (-b + sq) / a2
+    t = torch.where(t0 >= 0.0, t0, torch.where(t1 >= 0.0, t1, INF))
+    return t.masked_fill(~hit, INF)
+
+
+def closest_hit_plain(fields: Fields, o: Tensor, d: Tensor,
+                      alive: Tensor | None = None):
+    """Plain version of B1: (t [R] (+inf miss), rank [R] int32 (INT_MAX
+    on a miss or a dead lane))."""
+    R = o.shape[0]
+    t_out = torch.full((R,), INF, device=o.device)
+    rank_out = torch.full((R,), INT_MAX, dtype=torch.int32, device=o.device)
+    if fields.total == 0:
+        return t_out, rank_out
+    for c in ray_chunks(R, fields.total):
+        ox, oy, oz = ray_cols(o, c)
+        dx, dy, dz = ray_cols(d, c)
+        a = dx * dx + dy * dy + dz * dz
+        grids = []
+        if fields.counts[0]:
+            grids.append(_sphere_t(fields.sph, ox, oy, oz, dx, dy, dz,
+                                   2.0 * a, 4.0 * a))
+        for kind, tab, miss in (("aabb", fields.aabb, A_MISS),
+                                ("obb", fields.obb, O_MISS)):
+            if tab.shape[0]:
+                terms = box_terms(fields, kind, ox, oy, oz)
+                inv = box_inv_dirs(fields, kind, dx, dy, dz)
+                grids.append(slab_hit(*slab(*terms, *inv)) + tab[:, miss])
+        t, idx = torch.min(torch.cat(grids, dim=-1), dim=-1)
+        t_out[c] = t
+        rank_out[c] = torch.where(t == INF, INT_MAX, idx.to(torch.int32))
+    if alive is not None:
+        t_out = t_out.masked_fill(~alive, INF)
+        rank_out = rank_out.masked_fill(~alive, INT_MAX)
+    return t_out, rank_out
+
+
+# ---------------------------------------------------------------------------
+# Launch helpers
+# ---------------------------------------------------------------------------
+
+
+def on_cpu(x: Tensor) -> bool:
+    """The plain version runs only for tensors on the CPU; any other
+    device takes the kernel."""
+    return x.device.type == "cpu"
+
+
+def check_operands(device, *tensors, dtypes=(torch.float32,)):
+    """Raise unless every tensor is a contiguous tensor of ``dtypes`` on
+    ``device``."""
+    for x in tensors:
+        if x.device != device:
+            raise ValueError(f"operand on {x.device}, expected {device}")
+        if x.dtype not in dtypes:
+            raise ValueError(f"operand dtype {x.dtype}, expected {dtypes}")
+        if not x.is_contiguous():
+            raise ValueError("operands must be contiguous")
+
+
+def table_args(fields: Fields, device) -> list:
+    """(pointer, count) pairs of the three tables, checked for the
+    kernels' 16-byte row loads."""
+    args = []
+    for tab in (fields.sph, fields.aabb, fields.obb):
+        check_operands(device, tab)
+        if tab.data_ptr() % 16:
+            raise ValueError("primitive tables must be 16-byte aligned")
+        args += [tab.data_ptr(), tab.shape[0]]
+    return args
+
+
+def stream_of(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def run_closest_hit(fields: Fields, o: Tensor, d: Tensor,
+                    alive: Tensor | None = None):
+    """B1: o, d [R, 3] float32 -> (t [R] float32, +inf on a miss;
+    rank [R] int32 in [sphere, aabb, obb] order, INT_MAX on a miss).
+    ``alive`` [R] bool: dead lanes skip the scan and report a miss."""
+    if on_cpu(o):
+        return closest_hit_plain(fields, o, d, alive)
+    lib = build.load("closest_hit")
+    dev = o.device
+    check_operands(dev, o, d)
+    if alive is not None:
+        check_operands(dev, alive, dtypes=(torch.bool,))
+    R = o.shape[0]
+    t = torch.empty((R,), device=dev)
+    rank = torch.empty((R,), dtype=torch.int32, device=dev)
+    err = lib.closest_hit(o.data_ptr(), d.data_ptr(),
+                          None if alive is None else alive.data_ptr(), R,
+                          *table_args(fields, dev), t.data_ptr(),
+                          rank.data_ptr(), stream_of(dev))
+    build.check("closest_hit", err)
+    if R:
+        run_closest_hit.launches += 1
+    return t, rank
+
+
+run_closest_hit.launches = 0

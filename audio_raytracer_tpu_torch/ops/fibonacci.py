@@ -1,0 +1,32 @@
+"""Fibonacci-sphere ray directions.
+
+Reference: Jobs/FibonacciDirectionsJobParallel.cs:25-34 — golden-angle
+spiral: phi = pi (3 - sqrt 5), y_i = 1 - 2 i / (n - 1), r = sqrt(1 - y^2),
+theta = phi i, dir = (cos(theta) r, y, sin(theta) r).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def fibonacci_directions(count: int, device="cpu") -> torch.Tensor:
+    """[count, 3] float32 directions on the unit sphere.
+
+    Keeps the reference's n - 1 denominator, so the first and last rays
+    sit at the poles, and ``count=1`` gives NaN (0 / 0), as it does
+    there.
+    """
+    i = torch.arange(count, dtype=torch.float32, device=device)
+    # float32 arithmetic throughout, as the reference package computes it.
+    five = torch.tensor(5.0, dtype=torch.float32, device=device)
+    phi = math.pi * (3.0 - torch.sqrt(five))
+    denom = torch.tensor(count - 1, dtype=torch.float32, device=device)
+    y = 1.0 - (i / denom) * 2.0
+    radius = torch.sqrt(torch.clamp(1.0 - y * y, min=0.0))
+    theta = phi * i
+    x = torch.cos(theta) * radius
+    z = torch.sin(theta) * radius
+    return torch.stack([x, y, z], dim=-1)

@@ -1,0 +1,58 @@
+"""Quaternion math (xyzw layout, matching Unity.Mathematics).
+
+The PyTorch counterpart of ``audio_raytracer_tpu/ops/quaternion.py``:
+plain functions on tensors, broadcasting over leading dims.
+"""
+
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def _cross(a: Tensor, b: Tensor) -> Tensor:
+    return torch.linalg.cross(*torch.broadcast_tensors(a, b), dim=-1)
+
+
+def rotate(q: Tensor, v: Tensor) -> Tensor:
+    """Rotate vector(s) v [..., 3] by unit quaternion(s) q [..., 4]:
+    v' = v + w t + cross(q.xyz, t) with t = 2 cross(q.xyz, v)
+    (Unity's ``math.mul(quaternion, float3)``)."""
+    xyz = q[..., :3]
+    w = q[..., 3:4]
+    t = 2.0 * _cross(xyz, v)
+    return v + w * t + _cross(xyz, t)
+
+
+def to_matrix(q: Tensor) -> Tensor:
+    """Rotation matrix M [..., 3, 3] with M @ v == rotate(q, v)."""
+    x, y, z, w = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    row0 = torch.stack([1.0 - 2.0 * (yy + zz), 2.0 * (xy - wz),
+                        2.0 * (xz + wy)], dim=-1)
+    row1 = torch.stack([2.0 * (xy + wz), 1.0 - 2.0 * (xx + zz),
+                        2.0 * (yz - wx)], dim=-1)
+    row2 = torch.stack([2.0 * (xz - wy), 2.0 * (yz + wx),
+                        1.0 - 2.0 * (xx + yy)], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def inverse(q: Tensor) -> Tensor:
+    """Inverse of a unit quaternion: its conjugate."""
+    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+
+
+def from_axis_angle(axis: Tensor, angle: Tensor) -> Tensor:
+    """Unit quaternion (xyzw) for a rotation of ``angle`` radians about
+    ``axis``."""
+    axis = axis.to(torch.float32)
+    axis = axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+    half = angle.to(torch.float32)[..., None] * 0.5
+    return torch.cat([axis * torch.sin(half), torch.cos(half)], dim=-1)
+
+
+def normalize(q: Tensor) -> Tensor:
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
