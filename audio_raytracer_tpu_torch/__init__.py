@@ -8,7 +8,9 @@ nvcc at first use.
 
 Ported so far: one forward frame (``models.raytracer.forward``): the
 multi-bounce trace, permeation, the reverb impulse response and the
-reduce to per-target settings.
+reduce to per-target settings; and the differentiable training step
+(``models.differentiable``): the loudness map, materials training and
+pose and source recovery, with the chord adjoints as CUDA kernels.
 """
 
 from audio_raytracer_tpu_torch.ops.fibonacci import fibonacci_directions

@@ -30,6 +30,7 @@ from audio_raytracer_tpu_torch.types import (
     TargetSettings,
     TraceConfig,
     TraceResult,
+    check_device,
     resolve_device,
 )
 
@@ -38,12 +39,17 @@ Tensor = torch.Tensor
 BACKENDS = {"kernel": KernelBackend, "dense": DenseBackend}
 
 
-def _make_backend(scene: Scene, backend: str):
+def make_backend(scene: Scene, backend, **kernel_kw):
+    """The intersection engine for a backend name ("kernel" or "dense"),
+    or ``backend`` itself when it is an engine object. ``kernel_kw`` go to
+    ``KernelBackend`` (``differentiable``)."""
+    if not isinstance(backend, str):
+        return backend
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; "
                          f"expected one of {sorted(BACKENDS)}")
-    if scene.num_primitives == 0:
-        return None  # trace / permeation handle the empty scene
+    if backend == "kernel":
+        return KernelBackend(scene, **kernel_kw)
     return BACKENDS[backend](scene)
 
 
@@ -60,11 +66,11 @@ def forward(origin: Tensor, directions: Tensor, scene: Scene,
     ``device``.
     """
     dev = resolve_device(device)
-    for name, x in (("origin", origin), ("directions", directions),
-                    ("scene", scene.target_positions)):
-        if x.device.type != dev.type:
-            raise ValueError(f"{name} is on {x.device}, expected {dev}")
-    be = _make_backend(scene, backend)
+    check_device(dev, origin=origin, directions=directions,
+                 scene=scene.target_positions)
+    be = make_backend(scene, backend)
+    if scene.num_primitives == 0:
+        be = None  # trace / permeation handle the empty scene
     result = trace_op.trace(origin, directions, scene, cfg,
                             collect_debug=collect_debug, backend=be)
     perm = permeation_op.permeation(origin, directions, scene, cfg,

@@ -27,8 +27,9 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 
-SOURCES = ("closest_hit", "multi_any_hit", "multi_chord")
-HEADERS = ("fields.cuh",)
+SOURCES = ("closest_hit", "multi_any_hit", "multi_chord",
+           "multi_chord_dens_bwd", "multi_chord_bwd")
+HEADERS = ("fields.cuh", "chord.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -118,6 +119,10 @@ _SIGNATURES = {
     "multi_any_hit": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
                       _P, _P],
     "multi_chord": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P],
+    "multi_chord_dens_bwd": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
+                             _P, _P, _P, _P],
+    "multi_chord_bwd": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P,
+                        _P, _P],
 }
 
 

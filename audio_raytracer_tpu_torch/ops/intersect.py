@@ -42,6 +42,15 @@ def safe_normalize(x: Tensor, eps=1e-20) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _sqrt_disc(disc: Tensor) -> Tensor:
+    """sqrt(disc) where disc > 0, else 0 (miss lanes, which every caller
+    masks). The double where keeps autograd finite: an exactly tangent
+    lane (disc == 0) passes a zero gradient instead of the 0 x inf = NaN
+    of sqrt'(0)."""
+    pos = disc > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
+
+
 def _aabb_slab(o, d, center, half_extents):
     """Raw slab interval (t_near, t_far), each [R, N]. o, d: [R, 1, 3].
 
@@ -94,7 +103,7 @@ def sphere_t(o: Tensor, d: Tensor, center: Tensor, radius: Tensor,
     c = torch.sum(oc * oc, dim=-1) - radius * radius
     disc = b * b - 4.0 * a * c
     hit_disc = disc >= 0.0
-    sqrt_disc = torch.sqrt(torch.where(hit_disc, disc, 1.0))
+    sqrt_disc = _sqrt_disc(disc)
     t0 = (-b - sqrt_disc) / (2.0 * a)
     t1 = (-b + sqrt_disc) / (2.0 * a)
     t = torch.where(t0 >= 0.0, t0, torch.where(t1 >= 0.0, t1, INF))
@@ -184,7 +193,7 @@ def permeation_loss(o: Tensor, d: Tensor, scene: Scene,
     c = torch.sum(oc * oc, dim=-1) - sp.radius ** 2
     disc = b * b - c
     hit_disc = disc >= 0.0
-    sqrt_disc = torch.sqrt(torch.where(hit_disc, disc, 1.0))
+    sqrt_disc = _sqrt_disc(disc)
     t_enter = -b - sqrt_disc
     t_exit = -b + sqrt_disc
     s_chord = torch.clamp(t_exit - torch.clamp(t_enter, min=0.0), min=0.0)
@@ -208,6 +217,41 @@ def permeation_loss(o: Tensor, d: Tensor, scene: Scene,
         b_loss = b_loss.masked_fill(skip == ob.target_id, 0.0)
 
     return s_loss.sum(-1) + a_loss.sum(-1) + b_loss.sum(-1)
+
+
+def primitive_t_per_ray(o: Tensor, d: Tensor, kind: Tensor, center: Tensor,
+                        half_extents: Tensor, inv_rot: Tensor) -> Tensor:
+    """Differentiable hit distance of one selected primitive per ray.
+
+    The winner recompute: a closest-hit kernel selects the primitive (no
+    gradient), and this O(R) recompute of the winner's t is
+    differentiable in the ray origin and direction and in the gathered
+    geometry. o, d: [R, 3]; kind / center / half_extents / inv_rot: per-ray
+    winner attributes in the ``unified_arrays`` layout (sphere radius in
+    half_extents[..., 0], identity inv_rot for spheres and AABBs).
+    Returns [R]; miss lanes hold unspecified finite values (mask them
+    with the kernel's hit flag). Same formulas as the t-grids above.
+    """
+    # Box (AABBs and OBBs alike: identity inv_rot for AABBs).
+    lo = quaternion.rotate(inv_rot, o - center)
+    ld = quaternion.rotate(inv_rot, d)
+    t_near, t_far = _aabb_slab(lo, ld, 0.0, half_extents)
+    t_box = torch.where(t_near > 0.0, t_near, t_far)
+
+    # Sphere (full quadratic, near root first).
+    oc = o - center
+    radius = half_extents[..., 0]
+    a = torch.sum(d * d, dim=-1)
+    b = 2.0 * torch.sum(oc * d, dim=-1)
+    c = torch.sum(oc * oc, dim=-1) - radius * radius
+    disc = b * b - 4.0 * a * c
+    hit_disc = disc >= 0.0
+    sqrt_disc = _sqrt_disc(disc)
+    t0 = (-b - sqrt_disc) / (2.0 * a)
+    t1 = (-b + sqrt_disc) / (2.0 * a)
+    t_sph = torch.where(t0 >= 0.0, t0, t1)
+    t_sph = torch.where(hit_disc, t_sph, 0.0)  # finite on miss lanes
+    return torch.where(kind == 0, t_sph, t_box)
 
 
 # ---------------------------------------------------------------------------

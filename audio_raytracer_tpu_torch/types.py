@@ -37,6 +37,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def check_device(dev: torch.device, **tensors) -> None:
+    """Raise unless every named tensor lies on a device of ``dev``'s
+    type."""
+    for name, x in tensors.items():
+        if x.device.type != dev.type:
+            raise ValueError(f"{name} is on {x.device}, expected {dev}")
+
+
 def to_tensor(x, dtype, device):
     if not isinstance(x, Tensor):
         x = torch.from_numpy(np.array(x))

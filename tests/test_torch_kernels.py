@@ -381,3 +381,77 @@ class TestWrappers:
         monkeypatch.setattr(build.os.path, "isfile", lambda p: False)
         with pytest.raises(RuntimeError, match="nvcc"):
             build.find_nvcc()
+
+
+class TestAdjointWrappers:
+    def test_non_cpu_tensors_never_take_the_plain_version(self, backends,
+                                                          monkeypatch):
+        # B4 and B5 on a tensor off the CPU: the kernel or an error.
+        def no_library(name):
+            raise RuntimeError(f"cannot build {name}")
+
+        monkeypatch.setattr(build, "load", no_library)
+        fields = backends[0].fields
+        o = torch.zeros((4, 3), device="meta")
+        g = torch.ones((4, 1), device="meta")
+        before = (F.run_multi_chord_dens_bwd.launches,
+                  F.run_multi_chord_bwd.launches)
+        with pytest.raises(RuntimeError, match="multi_chord_dens_bwd"):
+            F.run_multi_chord_dens_bwd(fields, o, [o], (0,), g)
+        with pytest.raises(RuntimeError, match="multi_chord_bwd"):
+            F.run_multi_chord_bwd(fields, o, [o], (0,), g)
+        assert before == (F.run_multi_chord_dens_bwd.launches,
+                          F.run_multi_chord_bwd.launches)
+
+    def test_one_launch_per_group_of_sets(self, backends, monkeypatch):
+        # 19 sets: two groups. B4 launches once per group into the same
+        # density outputs; B5 launches its ray kernel and B4's kernel per
+        # group and counts both.
+        calls = []
+
+        def read_skips(ptr, n):
+            return tuple(ctypes.cast(ptr, ctypes.POINTER(ctypes.c_int))[:n])
+
+        class Lib:
+            def multi_chord_dens_bwd(self, o, dirs, g, R, S, skips, *rest):
+                calls.append(("B4", R, S, read_skips(skips, S)))
+                return 0
+
+            def multi_chord_bwd(self, o, dirs, g, R, S, skips, *rest):
+                calls.append(("B5", R, S, read_skips(skips, S)))
+                return 0
+
+        monkeypatch.setattr(build, "load", lambda name: Lib())
+        monkeypatch.setattr(F, "table_args", lambda fields, dev: [0] * 6)
+        monkeypatch.setattr(F, "stream_of", lambda dev: 0)
+        fields = backends[0].fields
+        R, S = 5, 19
+        o = torch.zeros((R, 3), device="meta")
+        g = torch.ones((R, S), device="meta")
+        skips = tuple(range(S))
+        before = (F.run_multi_chord_dens_bwd.launches,
+                  F.run_multi_chord_bwd.launches)
+        dens = F.run_multi_chord_dens_bwd(fields, o, [o] * S, skips, g)
+        d_o, d_dirs, dens5 = F.run_multi_chord_bwd(fields, o, [o] * S,
+                                                   skips, g)
+        counts = [(n,) for n in fields.counts]
+        assert [tuple(x.shape) for x in dens] == counts
+        assert [tuple(x.shape) for x in dens5] == counts
+        assert d_o.shape == (R, 3) and len(d_dirs) == S
+        assert all(x.shape == (R, 3) for x in d_dirs)
+        assert (F.run_multi_chord_dens_bwd.launches - before[0],
+                F.run_multi_chord_bwd.launches - before[1]) == (2, 4)
+        lo, hi = skips[:16], skips[16:]
+        assert calls == [("B4", R, 16, lo), ("B4", R, 3, hi),
+                         ("B5", R, 16, lo), ("B4", R, 16, lo),
+                         ("B5", R, 3, hi), ("B4", R, 3, hi)]
+
+    def test_plain_versions_do_not_count_launches(self, backends, rays):
+        o, d = rays
+        before = (F.run_multi_chord_dens_bwd.launches,
+                  F.run_multi_chord_bwd.launches)
+        g = torch.ones((96, 1))
+        F.run_multi_chord_dens_bwd(backends[0].fields, t(o), [t(d)], (0,), g)
+        F.run_multi_chord_bwd(backends[0].fields, t(o), [t(d)], (0,), g)
+        assert before == (F.run_multi_chord_dens_bwd.launches,
+                          F.run_multi_chord_bwd.launches)
