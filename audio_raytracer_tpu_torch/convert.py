@@ -25,6 +25,7 @@ from audio_raytracer_tpu_torch.types import (
     Obbs,
     Scene,
     Spheres,
+    resolve_device,
     to_tensor,
 )
 
@@ -41,9 +42,10 @@ def _common(p, device) -> dict:
                 active=to_tensor(p.active, torch.bool, device))
 
 
-def scene_from_arrays(scene, device="cpu") -> Scene:
+def scene_from_arrays(scene, device="cuda") -> Scene:
     """The PyTorch ``Scene`` on ``device`` with the fields of ``scene``
     (numpy arrays in the JAX ``Scene`` structure)."""
+    device = resolve_device(device)
     f32 = torch.float32
     sp, ab, ob = scene.spheres, scene.aabbs, scene.obbs
     return Scene(
@@ -58,16 +60,18 @@ def scene_from_arrays(scene, device="cpu") -> Scene:
     )
 
 
-def params_from_arrays(params, device="cpu") -> SceneParams:
+def params_from_arrays(params, device="cuda") -> SceneParams:
     """The PyTorch ``SceneParams`` on ``device`` from the JAX
     ``SceneParams`` structure (numpy leaves)."""
+    device = resolve_device(device)
     return SceneParams(*(_materials(getattr(params, k), device)
                          for k in ("sphere", "aabb", "obb")))
 
 
-def loudness_from_arrays(loudness, device="cpu") -> Loudness:
+def loudness_from_arrays(loudness, device="cuda") -> Loudness:
     """The PyTorch ``Loudness`` on ``device`` from the JAX ``Loudness``
     structure (numpy leaves; ``reverb_ir`` may be None)."""
+    device = resolve_device(device)
     ir = loudness.reverb_ir
     return Loudness(
         *(to_tensor(getattr(loudness, k), torch.float32, device)

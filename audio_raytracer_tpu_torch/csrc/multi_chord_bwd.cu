@@ -1,4 +1,5 @@
-// B5: the ray adjoint of the fused permeation chords (B3).
+// B5: the ray adjoint of the fused permeation chords (B3); at S = 1 under
+// the BALANCED tie rule, also B8's ray kernel (chord_loss_bwd below).
 //
 // Replaces the ray part of the TPU kernel audio_raytracer_tpu/ops/pallas/
 // fused.py::multi_chord_bwd_kernel (wrapper run_multi_chord_bwd): given
@@ -10,7 +11,8 @@
 // :642-644) and, for OBBs, the pullback through the world->local matrix
 // (M^T, :779-784). Every (ray, primitive, set) term is computed as the
 // plain version in ops/cuda/fused.py computes it (csrc/chord.cuh); the
-// sums over primitives run in scan order here.
+// sums over primitives run in scan order here. B5 takes the ONE_HOT tie
+// rule of the JAX kernel's hand-closed subgradients (chord.cuh).
 //
 // The TPU kernel also gave each primitive's density gradient. That is
 // the quantity B4 computes (gv x chord), so the B5 wrapper launches B4's
@@ -23,11 +25,12 @@
 //
 // Bound on the H100: float32 operations outside the tensor cores, per
 // (ray, primitive) as (shared, per set) in ops/cuda/fused.py::
-// CHORD_BWD_OPS, against 67 TFLOP/s.
+// CHORD_BWD_OPS (B8: CHORD_BWD_BALANCED_OPS), against the float32 rate
+// ceiling that tools/roofline.py measures.
 
 #include "chord.cuh"
 
-template <int S>
+template <int S, TieRule TIE>
 __global__ void __launch_bounds__(BLOCK)
 multi_chord_bwd_kernel(const float* __restrict__ o,
                        const float* __restrict__ dirs,
@@ -83,8 +86,8 @@ multi_chord_bwd_kernel(const float* __restrict__ o,
                                            d[s][1], d[s][2]);
         const bool valid = c.hit && (c.t_exit >= 0.0f) && tgt != skips.v[s];
         const float gv = valid ? g[s] : 0.0f;
-        const float g_chord = gv * dens * mask(c.chord_raw > 0.0f);
-        const float g_enter = -g_chord * mask(c.enter_raw > 0.0f);
+        const float g_chord = gv * dens * relu_w<TIE>(c.chord_raw);
+        const float g_enter = -g_chord * relu_w<TIE>(c.enter_raw);
         float g_b = -g_chord - g_enter;
         const float g_sq = g_chord - g_enter;
         // Zero on an exactly tangent lane (disc == 0, so sq == 0), where
@@ -120,8 +123,8 @@ multi_chord_bwd_kernel(const float* __restrict__ o,
         const bool valid = c.meet && tgt != skips.v[s] && ok;
         const float gv = valid ? g[s] : 0.0f;
         float g_mn[3], g_mx[3], g_inv[3];
-        box_chord_adjoint(gv, dens, valid, c, mn, mx, inv[s], g_mn, g_mx,
-                          g_inv);
+        box_chord_adjoint<TIE>(gv, dens, valid, c, mn, mx, inv[s], g_mn,
+                               g_mx, g_inv);
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
           go[a] = go[a] - (g_mn[a] + g_mx[a]);
@@ -162,7 +165,8 @@ multi_chord_bwd_kernel(const float* __restrict__ o,
         const bool valid = c.meet && tgt != skips.v[s] && ok;
         const float gv = valid ? g[s] : 0.0f;
         float g_mn[3], g_mx[3], g_inv[3], g_ld[3];
-        box_chord_adjoint(gv, dens, valid, c, mn, mx, li, g_mn, g_mx, g_inv);
+        box_chord_adjoint<TIE>(gv, dens, valid, c, mn, mx, li, g_mn, g_mx,
+                               g_inv);
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
           g_lo[a] = g_lo[a] - (g_mn[a] + g_mx[a]);
@@ -195,8 +199,9 @@ multi_chord_bwd_kernel(const float* __restrict__ o,
 
 #define LAUNCH_SETS(N)                                                   \
   case N:                                                                \
-    multi_chord_bwd_kernel<N><<<grid, BLOCK, 0, (cudaStream_t)stream>>>( \
-        o, dirs, gbar, R, sk, sph, ns, aabb, na, obb, no, d_o, d_dirs);  \
+    multi_chord_bwd_kernel<N, ONE_HOT>                                   \
+        <<<grid, BLOCK, 0, (cudaStream_t)stream>>>(                      \
+            o, dirs, gbar, R, sk, sph, ns, aabb, na, obb, no, d_o, d_dirs); \
     break;
 
 // dirs: [S, R, 3]; gbar: [R, S]; writes d_o [R, 3] and d_dirs [S, R, 3].
@@ -217,5 +222,23 @@ extern "C" int multi_chord_bwd(const float* o, const float* dirs,
     LAUNCH_SETS(9) LAUNCH_SETS(10) LAUNCH_SETS(11) LAUNCH_SETS(12)
     LAUNCH_SETS(13) LAUNCH_SETS(14) LAUNCH_SETS(15) LAUNCH_SETS(16)
   }
+  RETURN_LAST_ERROR;
+}
+
+// B8: the adjoint of the single-set chord sum (B7) as jax.vjp takes it,
+// the kernel above at S = 1 under the BALANCED tie rule. d: [R, 3]; gbar:
+// [R]; writes d_o and d_d, each [R, 3]. The density gradients come from
+// B4's kernel at S = 1, which the wrapper launches beside this one.
+extern "C" int chord_loss_bwd(const float* o, const float* d,
+                              const float* gbar, int R, int skip,
+                              const float* sph, int ns, const float* aabb,
+                              int na, const float* obb, int no, float* d_o,
+                              float* d_d, void* stream) {
+  if (R == 0) RETURN_LAST_ERROR;
+  Skips sk;
+  for (int s = 0; s < MAX_SETS; ++s) sk.v[s] = skip;
+  multi_chord_bwd_kernel<1, BALANCED>
+      <<<(R + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(
+          o, d, gbar, R, sk, sph, ns, aabb, na, obb, no, d_o, d_d);
   RETURN_LAST_ERROR;
 }

@@ -3,10 +3,12 @@
 The counterpart of ``audio_raytracer_tpu/ops/pallas/backend.py::
 PallasBackend``: the same field preparation (box bounds, the 9 baked OBB
 matrix rows, miss encodings, target ids, densities) and the same
-winner-attribute tables, with B1-B3 from ``ops/cuda`` in place of the
-Pallas kernels. A GPU kernel reads the primitive tables from global
-memory, so one launch takes any primitive count: there is no SMEM budget
-and no chunked variant.
+winner-attribute tables, with the kernels of ``ops/cuda`` in place of the
+Pallas kernels: B1 (closest hit), B2 and B3 (the fused multi-set
+occlusion and chords of the bounce loop and permeation), and B6-B8 (the
+single-set ``occluded`` and ``permeation_loss``). A GPU kernel reads the
+primitive tables from global memory, so one launch takes any primitive
+count: there is no SMEM budget and no chunked variant.
 
 With ``differentiable=True`` (JAX ``PallasBackend(differentiable=True)``,
 ops/pallas/backend.py:59-118) gradients flow at O(R + P) memory:
@@ -18,7 +20,8 @@ ops/pallas/backend.py:59-118) gradients flow at O(R + P) memory:
   materials (absorption, echo) from a table that stays in the graph;
 - permeation goes through ``ops/cuda/diff.py::MultiChordLoss``: B3
   forward; backward B5 where the ray origins or directions need a
-  gradient, B4 alone where only the densities do;
+  gradient, B4 alone where only the densities do; single-set permeation
+  through ``ChordLoss``: B7 forward, B8 backward;
 - occlusion booleans carry no gradient.
 
 Every kernel reads detached inputs. Forward values are those of
@@ -30,10 +33,13 @@ from __future__ import annotations
 import torch
 
 from audio_raytracer_tpu_torch.ops import intersect, quaternion
-from audio_raytracer_tpu_torch.ops.backend import empty_attrs
+from audio_raytracer_tpu_torch.ops.backend import NO_SKIP, empty_attrs
 from audio_raytracer_tpu_torch.ops.cuda import fused as F
 from audio_raytracer_tpu_torch.ops.cuda import kernels as K
-from audio_raytracer_tpu_torch.ops.cuda.diff import multi_chord_loss
+from audio_raytracer_tpu_torch.ops.cuda.diff import (
+    chord_loss,
+    multi_chord_loss,
+)
 from audio_raytracer_tpu_torch.types import Scene
 
 Tensor = torch.Tensor
@@ -138,6 +144,34 @@ class KernelBackend:
         return K.run_closest_hit(self.fields, o.detach().contiguous(),
                                  d.detach().contiguous())[0]
 
+    def _densities(self):
+        sc = self.scene
+        return (sc.spheres.material.density, sc.aabbs.material.density,
+                sc.obbs.material.density)
+
+    def occluded(self, o, d, limit, skip_target_id=None) -> Tensor:
+        """Single-set occlusion (B6): [R] bool, True where a primitive not
+        owned by ``skip_target_id`` hits at t < limit ([R] or broadcast);
+        d need not be unit length. No gradient."""
+        if self.total == 0:
+            return torch.zeros(o.shape[:-1], dtype=torch.bool,
+                               device=o.device)
+        skip = NO_SKIP if skip_target_id is None else int(skip_target_id)
+        return K.run_any_hit(self.fields, o.detach().contiguous(),
+                             d.detach().contiguous(),
+                             torch.as_tensor(limit).detach(), skip)
+
+    def permeation_loss(self, o, d, skip_target_id=None) -> Tensor:
+        """Single-set permeation chords (B7): [R] float32, d unit length;
+        with ``differentiable=True`` through ChordLoss (B8 backward)."""
+        if self.total == 0:
+            return o.new_zeros(o.shape[:-1])
+        skip = NO_SKIP if skip_target_id is None else int(skip_target_id)
+        if self.differentiable:
+            return chord_loss(self.fields, skip, o, d, self._densities())
+        return K.run_chord_loss(self.fields, o.detach().contiguous(),
+                                d.detach().contiguous(), skip)
+
     def multi_occluded(self, o, dirs, limits, skips, init_occ) -> Tensor:
         """Fused S-set occlusion (B2): [R, S] bool, init lanes True."""
         if self.total == 0:
@@ -154,9 +188,7 @@ class KernelBackend:
         if self.total == 0:
             return o.new_zeros(o.shape[:-1] + (len(dirs),))
         if self.differentiable:
-            sc = self.scene
-            dens = (sc.spheres.material.density, sc.aabbs.material.density,
-                    sc.obbs.material.density)
-            return multi_chord_loss(self.fields, skips, o, dens, dirs)
+            return multi_chord_loss(self.fields, skips, o, self._densities(),
+                                    dirs)
         return F.run_multi_chord(self.fields, o.detach().contiguous(),
                                  [x.detach() for x in dirs], tuple(skips))

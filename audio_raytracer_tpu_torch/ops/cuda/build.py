@@ -28,7 +28,7 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 
 SOURCES = ("closest_hit", "multi_any_hit", "multi_chord",
-           "multi_chord_dens_bwd", "multi_chord_bwd")
+           "multi_chord_dens_bwd", "multi_chord_bwd", "any_hit", "calibrate")
 HEADERS = ("fields.cuh", "chord.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -42,21 +42,27 @@ _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}
 
 
-def find_nvcc() -> str:
-    """Path of nvcc: $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
+def find_cuda_tool(tool: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump): $CUDA_HOME/bin,
+    then PATH, then /usr/local/cuda/bin."""
     cands = []
     if os.environ.get("CUDA_HOME"):
-        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
-    found = shutil.which("nvcc")
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", tool))
+    found = shutil.which(tool)
     if found:
         cands.append(found)
-    cands.append("/usr/local/cuda/bin/nvcc")
+    cands.append(f"/usr/local/cuda/bin/{tool}")
     for c in cands:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
     raise RuntimeError(
-        "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
-        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
+        f"{tool} not found (looked in $CUDA_HOME/bin, PATH and "
+        "/usr/local/cuda/bin)")
+
+
+def find_nvcc() -> str:
+    """Path of nvcc, without which the CUDA kernels cannot be built."""
+    return find_cuda_tool("nvcc")
 
 
 def _digest(name: str) -> str:
@@ -114,22 +120,34 @@ def load(name: str) -> ctypes.CDLL:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# The C entry points of each library and their argument types.
 _SIGNATURES = {
-    "closest_hit": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P],
-    "multi_any_hit": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
-                      _P, _P],
-    "multi_chord": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P],
-    "multi_chord_dens_bwd": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
-                             _P, _P, _P, _P],
-    "multi_chord_bwd": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P,
-                        _P, _P],
+    "closest_hit": {
+        "closest_hit": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P]},
+    "multi_any_hit": {
+        "multi_any_hit": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
+                          _P, _P]},
+    "multi_chord": {
+        "multi_chord": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P]},
+    "multi_chord_dens_bwd": {
+        "multi_chord_dens_bwd": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P,
+                                 _I, _P, _P, _P, _P]},
+    "multi_chord_bwd": {
+        "multi_chord_bwd": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
+                            _P, _P, _P],
+        "chord_loss_bwd": [_P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P,
+                           _P, _P]},
+    "any_hit": {
+        "any_hit": [_P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P]},
+    "calibrate": {"calibrate": [_P, _I, _P, _I, _I, _I, _P, _P]},
 }
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    fn = getattr(lib, name)
-    fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -1,0 +1,189 @@
+"""B9, the op-rate calibration kernel of the roofline tool.
+
+``run_calibrate`` replaces the TPU kernel ``tools/roofline.py::calibrate.
+kernel``: a counted chain of float32 operations per lane and per
+"primitive" (``csrc/calibrate.cu``), whose marginal rate between 88 and
+176 operations per primitive is the card's instruction-rate ceiling for the
+production kernels' instruction stream. On a CPU tensor it runs
+``calibrate_plain``, the same chain as tensor operations, which gives the
+kernel's values bit for bit (``--fmad=false``).
+
+``sass_loop_counts`` reads the built library back with ``cuobjdump`` and
+counts the float32 instructions in each instance's loop body, which must
+equal the counted operations.
+"""
+
+from __future__ import annotations
+
+import collections
+import re
+import subprocess
+
+import torch
+
+from audio_raytracer_tpu_torch.ops.cuda import build
+from audio_raytracer_tpu_torch.ops.cuda.kernels import (
+    check_operands,
+    on_cpu,
+    stream_of,
+)
+
+Tensor = torch.Tensor
+
+MIXES = ("fma4", "occl")
+OPS_PER_ITER = (88, 176)
+# Counted operations per round of each mix (the chains cycle in whole
+# rounds, so a body counts (ops // unit) * unit).
+UNIT = {"fma4": 8, "occl": 11}
+FIELDS_W = 8  # csrc/calibrate.cu CAL_W: six fields, two pad
+
+
+def field_table(fields) -> Tensor:
+    """Six [prims] float32 fields as the kernel's [prims, 8] table."""
+    tab = torch.stack([f.to(torch.float32) for f in fields], dim=1)
+    return torch.nn.functional.pad(tab, (0, FIELDS_W - 6)).contiguous()
+
+
+def _check(mix: str, ops_per_iter: int, fields) -> None:
+    if mix not in MIXES or ops_per_iter not in OPS_PER_ITER:
+        raise ValueError(f"mix {mix!r}, ops {ops_per_iter}: expected one of "
+                         f"{MIXES} and one of {OPS_PER_ITER}")
+    if len(fields) != 6:
+        raise ValueError("calibration needs six fields")
+
+
+def calibrate_plain(mix: str, ops_per_iter: int, x: Tensor, fields):
+    """Plain version of B9: the counted chain of tools/roofline.py over
+    the six fields, per element of x; returns v1 + v2 + v3 + v4, shaped
+    as x."""
+    _check(mix, ops_per_iter, fields)
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=x.device)
+
+    v0 = x.reshape(-1)
+    v1, v2, v3, v4 = v0, v0 * f32(1.1), v0 * f32(0.9), v0 * f32(1.2)
+    c1, c2, c3, c4 = f32(1e-7), f32(2e-7), f32(3e-7), f32(4e-7)
+    k, tiny = f32(1e-3), f32(1e-9)
+    for p in range(fields[0].shape[0]):
+        f = [x_[p] for x_ in fields]
+        if mix == "fma4":
+            for q in range(ops_per_iter // 8):
+                s = f[q % 6]
+                v1 = v1 * s + c1
+                v2 = v2 * s + c2
+                v3 = v3 * s + c3
+                v4 = v4 * s + c4
+        else:
+            for q in range(ops_per_iter // 11):
+                s, t = f[q % 3], f[3 + q % 3]
+                v1 = v1 * s + c1
+                v2 = v2 + t * k
+                v3 = torch.minimum(v3, v1)
+                v4 = torch.maximum(v4, v2)
+                v1 = torch.where(v3 > v4, v1, v2)
+                v2 = torch.where(v2 < v3, v2 + tiny, v2)
+    return (v1 + v2 + v3 + v4).reshape(x.shape)
+
+
+def counted_ops(mix: str, ops_per_iter: int, lanes: int, prims: int) -> int:
+    """Counted float32 operations of one calibration call."""
+    return lanes * prims * (ops_per_iter // UNIT[mix]) * UNIT[mix]
+
+
+def run_calibrate(mix: str, ops_per_iter: int, x: Tensor, fields):
+    """B9: ``mix`` "fma4" or "occl", ``ops_per_iter`` 88 or 176, x any
+    float32 tensor (one lane per element; the JAX tool's is (blocks * 8,
+    512)), ``fields`` six [prims] float32 tensors. Returns v1 + v2 + v3 +
+    v4 per lane, shaped as x."""
+    if on_cpu(x):
+        return calibrate_plain(mix, ops_per_iter, x, fields)
+    _check(mix, ops_per_iter, fields)
+    lib = build.load("calibrate")
+    dev = x.device
+    x = x.contiguous()
+    tab = field_table(fields)
+    check_operands(dev, x, tab)
+    out = torch.empty_like(x)
+    err = lib.calibrate(x.data_ptr(), x.numel(), tab.data_ptr(),
+                        tab.shape[0], MIXES.index(mix), ops_per_iter,
+                        out.data_ptr(), stream_of(dev))
+    build.check("calibrate", err)
+    if x.numel():
+        run_calibrate.launches += 1
+    return out
+
+
+run_calibrate.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The loop bodies in the machine code
+# ---------------------------------------------------------------------------
+
+# Float32 arithmetic, compare and select instructions of a Hopper SASS
+# listing (a select may come out as the integer SEL on float bits).
+FP32_OPCODES = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSET", "FSEL",
+                "SEL")
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)"
+                   r"([^;]*);")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_FUNC = re.compile(r"Function : (\S+)")
+_TEMPLATE = re.compile(r"calibrate_kernelILi(\d)ELi(\d+)E")
+
+
+def loop_body_counts(sass: str) -> dict:
+    """{(mix, ops_per_iter): (float32 instructions, opcode histogram)} of
+    the primitive loop of each calibrate_kernel instance in a ``cuobjdump
+    -sass`` listing: the innermost loop (the backward branch with the
+    shortest span) that holds float32 instructions; the tile-staging
+    loop holds none."""
+    out = {}
+    for chunk in re.split(r"(?=\s+Function : )", sass):
+        m = _FUNC.search(chunk)
+        t = _TEMPLATE.search(m.group(1)) if m else None
+        if not t:
+            continue
+        insns, labels, pending = [], {}, []
+        for line in chunk.splitlines():
+            lm = _LABEL.match(line)
+            if lm:
+                pending.append(lm.group(1))
+                continue
+            im = _INSN.search(line)
+            if im:
+                addr = int(im.group(1), 16)
+                for name in pending:
+                    labels[name] = addr
+                pending = []
+                insns.append((addr, im.group(3), im.group(4)))
+        loops = []
+        for addr, op, args in insns:
+            if not op.startswith("BRA"):
+                continue
+            tm = re.search(r"(\.L_x_\d+)|0x([0-9a-f]+)", args)
+            if not tm:
+                continue
+            target = labels.get(tm.group(1)) if tm.group(1) \
+                else int(tm.group(2), 16)
+            if target is not None and target < addr:
+                loops.append((addr - target, target, addr))
+        for _, lo, hi in sorted(loops):
+            ops = collections.Counter(op.split(".")[0] for a, op, _ in insns
+                                      if lo <= a <= hi)
+            fp32 = sum(n for op, n in ops.items() if op in FP32_OPCODES)
+            if fp32:
+                out[MIXES[int(t.group(1))], int(t.group(2))] = (fp32,
+                                                                dict(ops))
+                break
+    return out
+
+
+def sass_loop_counts() -> dict:
+    """``loop_body_counts`` of the built calibration library."""
+    lib = build.lib_path("calibrate")
+    build.load("calibrate")
+    sass = subprocess.run([build.find_cuda_tool("cuobjdump"), "-sass", lib],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return loop_body_counts(sass)

@@ -18,8 +18,6 @@ kernel's arithmetic. A CUDA tensor never takes the plain version.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from audio_raytracer_tpu_torch.ops.backend import ray_chunks
@@ -44,6 +42,7 @@ from audio_raytracer_tpu_torch.ops.cuda.kernels import (
     on_cpu,
     ray_cols,
     safe_inv,
+    skips_arg,
     slab,
     slab_hit,
     stream_of,
@@ -65,11 +64,13 @@ MAX_SETS = 16
 OCC_OPS = {"sphere": (10, 15), "aabb": (6, 21), "obb": (27, 42)}
 CHORD_OPS = {"sphere": (9, 18), "aabb": (7, 23), "obb": (28, 44)}
 CHORD_BWD_OPS = {"sphere": (9, 62), "aabb": (7, 111), "obb": (46, 156)}
-
-
-def _skips_arg(skips):
-    arr = (ctypes.c_int * len(skips))(*skips)
-    return arr, ctypes.cast(arr, ctypes.c_void_p)
+# The same ray kernel under the BALANCED tie rule (B8's, at S = 1): the
+# tie tests of max(., 0) add 4 per sphere (a compare and a select each);
+# a box adds the 11 compares that find a tie (csrc/chord.cuh::box_tie)
+# and, with none, takes B5's closed form. The balanced chains that run
+# only on a tie are not counted: random rays meet none.
+CHORD_BWD_BALANCED_OPS = {"sphere": (9, 66), "aabb": (7, 122),
+                          "obb": (46, 167)}
 
 
 def set_groups(S: int) -> list[slice]:
@@ -151,7 +152,7 @@ def run_multi_any_hit(fields: Fields, o: Tensor, dirs, limits: Tensor,
         lim, init = limits[:, g].contiguous(), init_occ[:, g].contiguous()
         occ = torch.empty((R, g.stop - g.start), dtype=torch.bool,
                           device=dev)
-        keep, skips_ptr = _skips_arg(skips[g])
+        keep, skips_ptr = skips_arg(skips[g])
         err = lib.multi_any_hit(o.data_ptr(), stacked.data_ptr(),
                                 lim.data_ptr(), init.data_ptr(), R,
                                 g.stop - g.start, skips_ptr,
@@ -251,7 +252,7 @@ def run_multi_chord(fields: Fields, o: Tensor, dirs, skips) -> Tensor:
         stacked = _stack_dirs(dirs[g])
         check_operands(dev, stacked)
         out = torch.empty((R, g.stop - g.start), device=dev)
-        keep, skips_ptr = _skips_arg(skips[g])
+        keep, skips_ptr = skips_arg(skips[g])
         err = lib.multi_chord(o.data_ptr(), stacked.data_ptr(), R,
                               g.stop - g.start, skips_ptr,
                               *table_args(fields, dev), out.data_ptr(),
@@ -478,7 +479,7 @@ def run_multi_chord_dens_bwd(fields: Fields, o: Tensor, dirs, skips,
     dev, R = o.device, o.shape[0]
     outs = _dens_outs(fields, dev)
     for g, stacked, cols in _bwd_groups(o, dirs, gbar):
-        keep, skips_ptr = _skips_arg(skips[g])
+        keep, skips_ptr = skips_arg(skips[g])
         _launch_dens_bwd(lib, fields, o, stacked, cols, R, skips_ptr, outs,
                          dev)
         if R:
@@ -507,7 +508,7 @@ def run_multi_chord_bwd(fields: Fields, o: Tensor, dirs, skips,
     d_o = torch.zeros((R, 3), device=dev)
     d_dirs = []
     for g, stacked, cols in _bwd_groups(o, dirs, gbar):
-        keep, skips_ptr = _skips_arg(skips[g])
+        keep, skips_ptr = skips_arg(skips[g])
         part_o = torch.empty((R, 3), device=dev)
         part_d = torch.empty_like(stacked)
         err = lib.multi_chord_bwd(o.data_ptr(), stacked.data_ptr(),

@@ -1,10 +1,14 @@
-"""B1, the closest-hit kernel, and the field layout the kernels share.
+"""B1 closest hit, the single-set kernels B6-B8, and the field layout the
+kernels share.
 
-``run_closest_hit`` replaces the TPU kernel
-``audio_raytracer_tpu/ops/pallas/kernels.py::closest_hit_kernel``. On a
-CUDA tensor it launches ``csrc/closest_hit.cu``; on a CPU tensor it runs
-``closest_hit_plain``, the same arithmetic as plain tensor ops. There is
-no fallback between the two: a CUDA tensor gets the kernel or an error.
+Each wrapper replaces a TPU kernel of ``audio_raytracer_tpu/ops/pallas/
+kernels.py``: ``run_closest_hit`` its ``closest_hit_kernel`` (B1),
+``run_any_hit`` its ``any_hit_kernel`` (B6), ``run_chord_loss`` its
+``chord_loss_kernel`` (B7) and ``run_chord_loss_bwd`` its
+``chord_bwd_kernel`` (B8). On a CUDA tensor a wrapper launches its kernel
+(``csrc/*.cu``); on a CPU tensor it runs the plain version beside it, the
+same arithmetic as plain tensor ops. There is no fallback between the
+two: a CUDA tensor gets the kernel or an error.
 
 Primitive fields are one float32 table per type (``Fields``), one row per
 primitive, in the column order of ``csrc/fields.cuh``. Target ids are
@@ -18,12 +22,14 @@ bit except for the order of float sums. They work on ray chunks so their
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
 from audio_raytracer_tpu_torch.ops.backend import ray_chunks
 from audio_raytracer_tpu_torch.ops.cuda import build
+from audio_raytracer_tpu_torch.ops.intersect import _sqrt_disc
 
 Tensor = torch.Tensor
 INF = float("inf")
@@ -36,7 +42,10 @@ A_MISS, A_TGT, A_DENS = 6, 7, 8  # aabb: min xyz, max xyz, miss tgt dens
 O_M, O_MISS, O_TGT, O_DENS = 6, 15, 16, 17  # obb: c xyz, h xyz, m 9, ...
 
 # Float operations per (live ray, primitive) in the B1 loop body, for the
-# op-count bound (the sphere counts only its always-executed part).
+# op-count bound (the sphere counts only its always-executed part). B6
+# runs the same per-primitive t with the limit compare in place of B1's
+# running-minimum compare, over the primitives up to a ray's first
+# occluder.
 OPS = {"sphere": 19, "aabb": 27, "obb": 69}
 
 
@@ -216,6 +225,13 @@ def stream_of(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def skips_arg(skips):
+    """(array, pointer) of an int array of skip target ids; keep the array
+    alive while the kernel's C entry point reads it."""
+    arr = (ctypes.c_int * len(skips))(*skips)
+    return arr, ctypes.cast(arr, ctypes.c_void_p)
+
+
 def run_closest_hit(fields: Fields, o: Tensor, d: Tensor,
                     alive: Tensor | None = None):
     """B1: o, d [R, 3] float32 -> (t [R] float32, +inf on a miss;
@@ -242,3 +258,217 @@ def run_closest_hit(fields: Fields, o: Tensor, d: Tensor,
 
 
 run_closest_hit.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B6: single-set occlusion
+# ---------------------------------------------------------------------------
+
+
+def ray_limits(limit, R: int, device) -> Tensor:
+    """``limit`` ([R] or anything that broadcasts to it) as a contiguous
+    [R] float32 tensor."""
+    lim = torch.as_tensor(limit, dtype=torch.float32, device=device)
+    return lim.expand(R).contiguous()
+
+
+def any_hit_grid(fields: Fields, o: Tensor, d: Tensor, limit: Tensor,
+                 skip: int) -> Tensor:
+    """[R, P] bool in scan order: primitive p is not owned by ``skip`` and
+    hits ray r at t < limit[r] (B1's per-primitive t, +inf on a miss)."""
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    grids = []
+    if fields.counts[0]:
+        a = dx * dx + dy * dy + dz * dz
+        grids.append(_sphere_t(fields.sph, ox, oy, oz, dx, dy, dz, 2.0 * a,
+                               4.0 * a)
+                     .masked_fill(ids(fields.sph, S_TGT) == skip, INF))
+    for kind, tab, miss, tcol in (("aabb", fields.aabb, A_MISS, A_TGT),
+                                  ("obb", fields.obb, O_MISS, O_TGT)):
+        if tab.shape[0]:
+            terms = box_terms(fields, kind, ox, oy, oz)
+            inv = box_inv_dirs(fields, kind, dx, dy, dz)
+            t = slab_hit(*slab(*terms, *inv)) + tab[:, miss]
+            grids.append(t.masked_fill(ids(tab, tcol) == skip, INF))
+    return torch.cat(grids, dim=-1) < limit[:, None]
+
+
+def any_hit_plain(fields: Fields, o: Tensor, d: Tensor, limit: Tensor,
+                  skip: int) -> Tensor:
+    """Plain version of B6: [R] bool, ``any_hit_grid`` reduced over the
+    primitives."""
+    out = torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
+    for c in ray_chunks(o.shape[0], fields.total):
+        out[c] = any_hit_grid(fields, o[c], d[c], limit[c], skip).any(-1)
+    return out
+
+
+def run_any_hit(fields: Fields, o: Tensor, d: Tensor, limit, skip: int):
+    """B6: o, d [R, 3] float32 (d of any length), ``limit`` [R] or
+    broadcast, ``skip`` a target id (NO_SKIP for none) -> [R] bool: does
+    a primitive not owned by ``skip`` hit at t < limit?"""
+    limit = ray_limits(limit, o.shape[0], o.device)
+    if on_cpu(o):
+        return any_hit_plain(fields, o, d, limit, skip)
+    lib = build.load("any_hit")
+    dev = o.device
+    check_operands(dev, o, d, limit)
+    R = o.shape[0]
+    occ = torch.empty((R,), dtype=torch.bool, device=dev)
+    err = lib.any_hit(o.data_ptr(), d.data_ptr(), limit.data_ptr(), R, skip,
+                      *table_args(fields, dev), occ.data_ptr(),
+                      stream_of(dev))
+    build.check("any_hit", err)
+    if R:
+        run_any_hit.launches += 1
+    return occ
+
+
+run_any_hit.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B7 and B8: single-set permeation chords and their adjoint
+# ---------------------------------------------------------------------------
+
+
+def _chord_sum(fields: Fields, o: Tensor, d: Tensor, skip: int, dens):
+    """[c] sums of chord x density along the unbounded rays o, d [c, 3]
+    (d unit length), skipping primitives owned by ``skip``; ``dens`` are
+    the (sphere, aabb, obb) densities. The JAX kernel's arithmetic as it
+    is written (ops/pallas/kernels.py:507-546), max(0, .) as a maximum,
+    so that autograd takes jax.vjp's derivative, ties included. Where a
+    ray is exactly tangent to a sphere (disc = 0) the derivative is 0
+    (``intersect._sqrt_disc``), not JAX's NaN."""
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    zero = o.new_zeros(())
+    mx = torch.maximum
+    total = o.new_zeros(o.shape[0])
+    if fields.counts[0]:
+        sph = fields.sph
+        ocx, ocy, ocz = ox - sph[:, 0], oy - sph[:, 1], oz - sph[:, 2]
+        b = ocx * dx + ocy * dy + ocz * dz
+        cc = (ocx * ocx + ocy * ocy + ocz * ocz) - sph[:, S_R2]
+        disc = b * b - cc
+        hit = disc >= 0.0
+        sq = _sqrt_disc(disc)
+        t_exit = -b + sq
+        chord = mx(zero, t_exit - mx(-b - sq, zero))
+        valid = hit & (t_exit >= 0.0) & (ids(sph, S_TGT) != skip)
+        total = total + (torch.where(valid, chord, 0.0) * dens[0]).sum(-1)
+    for i, kind, tab, miss, tcol in ((1, "aabb", fields.aabb, A_MISS, A_TGT),
+                                     (2, "obb", fields.obb, O_MISS, O_TGT)):
+        if not tab.shape[0]:
+            continue
+        terms = box_terms(fields, kind, ox, oy, oz)
+        t_near, t_far = slab(*terms, *box_inv_dirs(fields, kind, dx, dy, dz))
+        chord = mx(zero, t_far - mx(t_near, zero))
+        valid = ((t_near <= t_far) & (t_far >= 0.0)
+                 & (ids(tab, tcol) != skip) & (tab[:, miss] == 0.0))
+        total = total + (torch.where(valid, chord, 0.0) * dens[i]).sum(-1)
+    return total
+
+
+def _table_dens(fields: Fields):
+    return (fields.sph[:, S_DENS], fields.aabb[:, A_DENS],
+            fields.obb[:, O_DENS])
+
+
+def chord_loss_plain(fields: Fields, o: Tensor, d: Tensor,
+                     skip: int) -> Tensor:
+    """Plain version of B7: [R] float32 chord x density sums."""
+    out = torch.zeros((o.shape[0],), device=o.device)
+    dens = _table_dens(fields)
+    for c in ray_chunks(o.shape[0], fields.total):
+        out[c] = _chord_sum(fields, o[c], d[c], skip, dens)
+    return out
+
+
+def run_chord_loss(fields: Fields, o: Tensor, d: Tensor, skip: int):
+    """B7: permeation chord x density sums along the unbounded rays o, d
+    [R, 3] (d unit length), skipping the colliders of target ``skip``
+    (NO_SKIP for none). Returns [R] float32.
+
+    Its kernel is B3's at S = 1 (``csrc/multi_chord.cu``,
+    ``multi_chord_kernel<1>``: B3 at one set with per-ray origins is
+    exactly this function); it counts its own launches."""
+    if on_cpu(o):
+        return chord_loss_plain(fields, o, d, skip)
+    lib = build.load("multi_chord")
+    dev = o.device
+    check_operands(dev, o, d)
+    R = o.shape[0]
+    out = torch.empty((R,), device=dev)
+    keep, skips_ptr = skips_arg([skip])
+    err = lib.multi_chord(o.data_ptr(), d.data_ptr(), R, 1, skips_ptr,
+                          *table_args(fields, dev), out.data_ptr(),
+                          stream_of(dev))
+    build.check("multi_chord", err)
+    if R:
+        run_chord_loss.launches += 1
+    return out
+
+
+run_chord_loss.launches = 0
+
+
+def chord_loss_bwd_plain(fields: Fields, o: Tensor, d: Tensor, skip: int,
+                         gbar: Tensor):
+    """Plain version of B8: autograd through ``_chord_sum`` per ray chunk.
+    Returns (d_o [R, 3], d_d [R, 3], (sphere, aabb, obb) density
+    gradients)."""
+    d_o, d_d = torch.zeros_like(o), torch.zeros_like(d)
+    dens = [x.detach().clone().requires_grad_(True)
+            for x in _table_dens(fields)]
+    g_dens = [torch.zeros_like(x) for x in dens]
+    with torch.enable_grad():
+        for c in ray_chunks(o.shape[0], fields.total):
+            oc = o[c].detach().requires_grad_(True)
+            dc = d[c].detach().requires_grad_(True)
+            loss = _chord_sum(fields, oc, dc, skip, dens)
+            grads = torch.autograd.grad(loss, [oc, dc, *dens], gbar[c],
+                                        allow_unused=True)
+            d_o[c], d_d[c] = grads[0], grads[1]
+            for acc, g in zip(g_dens, grads[2:]):
+                if g is not None:
+                    acc += g
+    return d_o, d_d, tuple(g_dens)
+
+
+def run_chord_loss_bwd(fields: Fields, o: Tensor, d: Tensor, skip: int,
+                       gbar: Tensor):
+    """B8: the adjoint of B7 as jax.vjp takes it (ties split evenly at
+    every max and min). gbar [R]: the cotangent of B7's output. Returns
+    (d_o [R, 3], d_d [R, 3], (sphere, aabb, obb) density gradients).
+
+    Two launches, both counted here, as B5's: B5's ray kernel at S = 1
+    under the BALANCED tie rule (``csrc/multi_chord_bwd.cu::
+    chord_loss_bwd``) for d_o and d_d, and B4's primitive-parallel kernel
+    at S = 1 for the densities (the same gbar x chord)."""
+    if on_cpu(o):
+        return chord_loss_bwd_plain(fields, o, d, skip, gbar)
+    lib = build.load("multi_chord_bwd")
+    dens_lib = build.load("multi_chord_dens_bwd")
+    dev, R = o.device, o.shape[0]
+    check_operands(dev, o, d, gbar)
+    d_o, d_d = torch.empty((R, 3), device=dev), torch.empty((R, 3),
+                                                            device=dev)
+    dens = tuple(torch.zeros((n,), device=dev) for n in fields.counts)
+    tabs = table_args(fields, dev)
+    err = lib.chord_loss_bwd(o.data_ptr(), d.data_ptr(), gbar.data_ptr(), R,
+                             skip, *tabs, d_o.data_ptr(), d_d.data_ptr(),
+                             stream_of(dev))
+    build.check("chord_loss_bwd", err)
+    keep, skips_ptr = skips_arg([skip])
+    err = dens_lib.multi_chord_dens_bwd(
+        o.data_ptr(), d.data_ptr(), gbar.data_ptr(), R, 1, skips_ptr, *tabs,
+        *(x.data_ptr() for x in dens), stream_of(dev))
+    build.check("multi_chord_dens_bwd", err)
+    if R:
+        run_chord_loss_bwd.launches += 2
+    return d_o, d_d, dens
+
+
+run_chord_loss_bwd.launches = 0

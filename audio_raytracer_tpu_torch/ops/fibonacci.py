@@ -11,14 +11,17 @@ import math
 
 import torch
 
+from audio_raytracer_tpu_torch.types import resolve_device
 
-def fibonacci_directions(count: int, device="cpu") -> torch.Tensor:
-    """[count, 3] float32 directions on the unit sphere.
+
+def fibonacci_directions(count: int, device="cuda") -> torch.Tensor:
+    """[count, 3] float32 directions on the unit sphere, on ``device``.
 
     Keeps the reference's n - 1 denominator, so the first and last rays
     sit at the poles, and ``count=1`` gives NaN (0 / 0), as it does
     there.
     """
+    device = resolve_device(device)
     i = torch.arange(count, dtype=torch.float32, device=device)
     # float32 arithmetic throughout, as the reference package computes it.
     five = torch.tensor(5.0, dtype=torch.float32, device=device)

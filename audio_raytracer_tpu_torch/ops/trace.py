@@ -1,7 +1,7 @@
 """Multi-bounce trace: the main raytracer loop, fixed depth, masked.
 
-The PyTorch counterpart of ``audio_raytracer_tpu/ops/trace.py`` without
-ray compaction. The reference's per-ray ``while (isRayAlive)`` loop
+The PyTorch counterpart of ``audio_raytracer_tpu/ops/trace.py``. The
+reference's per-ray ``while (isRayAlive)`` loop
 (Jobs/AudioRaytracerJobBatched.cs:61-215) becomes a Python loop of
 ``max_hits_per_ray`` bounce steps over the whole ray batch, with an alive
 mask instead of an early exit. Per bounce:
@@ -17,6 +17,16 @@ mask instead of an early exit. Per bounce:
      MaxRayLife x absorption, and stop if life went below 0
 
 Steps 3 and 4 are one backend call per bounce (``multi_occluded``).
+
+Ray compaction (``TraceConfig.compact_rays``, engines that skip dead
+lanes): before every bounce after the first, a stable alive-first
+reorder packs the live rays into a dense prefix, so the kernels' dead-lane
+skips find whole blocks of dead rays, and the bounce's outputs go back to
+the original order after it. ``compact_unordered`` skips that restore:
+the rays stay in their compacted order from bounce to bounce, the muffle
+counts reduce per bounce, and the echo distances come back permuted
+within each bounce column. Both permutations are applied as packed row
+gathers, as the JAX package applies them.
 """
 
 from __future__ import annotations
@@ -42,6 +52,48 @@ def accum_batch_ids(ray_count: int, num_batches: int,
     r = torch.arange(ray_count, device=device)
     ray_start = (r // batch_size) * batch_size
     return (ray_start * num_batches) // ray_count
+
+
+def alive_partition(alive: Tensor, with_inverse: bool = True):
+    """Stable alive-first permutation and its inverse: ``(order, pos)``,
+    int64 [R]. ``x[order]`` packs the alive lanes into a dense prefix
+    (relative order kept on both sides) and ``y[pos]`` undoes it: lane i
+    lands at ``pos[i]``. ``with_inverse=False`` returns ``pos=None`` (the
+    unordered tier never restores). ``pos`` comes from two cumulative
+    sums, so both directions are gathers."""
+    order = torch.argsort((~alive).to(torch.uint8), stable=True)
+    if not with_inverse:
+        return order, None
+    a = alive.to(torch.int64)
+    pos_alive = torch.cumsum(a, 0) - a  # rank among the alive lanes
+    n_alive = pos_alive[-1] + a[-1]
+    dead = 1 - a
+    pos_dead = torch.cumsum(dead, 0) - dead + n_alive
+    return order, torch.where(alive, pos_alive, pos_dead)
+
+
+def _pack_rows(*cols) -> Tensor:
+    """Per-ray columns ([R] or [R, k]; float32, int32 or bool) as one
+    [R, K] float32 matrix, so that a permutation moves whole rows in one
+    gather. int32 is bitcast (exact), bool goes through 0 / 1."""
+    parts = []
+    for c in cols:
+        if c.dtype == torch.int32:
+            c = c.view(torch.float32)
+        elif c.dtype != torch.float32:
+            c = c.to(torch.float32)
+        parts.append(c[:, None] if c.ndim == 1 else c)
+    return torch.cat(parts, dim=1)
+
+
+def _unpack_col(rows: Tensor, sl, dtype=torch.float32) -> Tensor:
+    """Inverse of _pack_rows for one column (int) or column slice."""
+    c = rows[:, sl]
+    if dtype == torch.int32:
+        return c.contiguous().view(torch.int32)
+    if dtype == torch.bool:
+        return c > 0.5
+    return c
 
 
 def _secondary_occlusion(backend, scene: Scene, cfg: TraceConfig,
@@ -100,6 +152,7 @@ def trace(origin: Tensor, directions: Tensor, scene: Scene,
     R = directions.shape[0]
     T = scene.num_targets
     H = cfg.max_hits_per_ray
+    B = cfg.num_accum_batches
     eps = cfg.epsilon
     dev = directions.device
 
@@ -107,8 +160,16 @@ def trace(origin: Tensor, directions: Tensor, scene: Scene,
         if scene.num_primitives == 0:
             return _empty_result(R, T, H, cfg, dev, collect_debug)
         backend = DenseBackend(scene)
-    # Engines that skip dead lanes get the alive mask.
+    # Engines that skip dead lanes get the alive mask, and only for them
+    # does the alive-first reorder pay.
     block_skip = getattr(backend, "supports_block_skip", False)
+    compact = cfg.compact_rays and block_skip
+    unordered = compact and cfg.compact_unordered and not collect_debug
+    # The accumulation-batch ids ride the reorder only where the muffle
+    # counts reduce per bounce over more than one batch.
+    carry_bids = unordered and B > 1
+    batch_ids = accum_batch_ids(R, B, dev)
+    bids = batch_ids.to(torch.int32)
 
     o = origin.to(directions.dtype).expand(R, 3)
     d = directions
@@ -116,8 +177,23 @@ def trace(origin: Tensor, directions: Tensor, scene: Scene,
     alive = torch.ones((R,), dtype=torch.bool, device=dev)
     echoes, hit_mask, hit_points = [], [], []
     muffle_per_ray = torch.zeros((R, T), dtype=torch.int32, device=dev)
+    muffle_acc = torch.zeros((B, T), dtype=torch.int32, device=dev)
 
     for step in range(H):
+        # Every ray starts alive, so bounce 0's partition would be the
+        # identity: it is skipped.
+        reorder = compact and step > 0
+        if reorder:
+            with torch.profiler.record_function("trace.compact"):
+                order, pos = alive_partition(alive,
+                                             with_inverse=not unordered)
+                cols = (o, d, life, alive) + ((bids,) if carry_bids else ())
+                rows = _pack_rows(*cols).index_select(0, order)
+                o, d, life = rows[:, 0:3], rows[:, 3:6], rows[:, 6]
+                alive = _unpack_col(rows, 7, torch.bool)
+                if carry_bids:
+                    bids = _unpack_col(rows, 8, torch.int32)
+
         hit, t, attrs = backend.closest_hit(
             o, d, alive=alive if block_skip else None)
         live_hit = alive & hit
@@ -132,8 +208,7 @@ def trace(origin: Tensor, directions: Tensor, scene: Scene,
             backend, scene, cfg, offset_point, p, origin, live_hit)
         echo_val = torch.where(live_hit & echo_visible,
                                dist_to_origin * attrs["echo"], 0.0)
-        muffle_per_ray += (muffle_visible & live_hit[..., None]).to(
-            torch.int32)
+        muffle_inc = muffle_visible & live_hit[..., None]
 
         # Termination + reflection (cs:179-193, 456-532).
         can_continue = live_hit & (step + 1 < H) & (life > 0.0)
@@ -150,24 +225,53 @@ def trace(origin: Tensor, directions: Tensor, scene: Scene,
         d = torch.where(cc, d_new, d)
         life = torch.where(can_continue, life_new, life)
 
+        if unordered:
+            # No restore: the muffle counts reduce to [B, T] here, on the
+            # compacted batch ids, as a sum (B == 1) or a one-hot matrix
+            # product (exact in float32 below 2^24 counts).
+            m = muffle_inc.to(torch.float32)
+            if B == 1:
+                seg = m.sum(0, keepdim=True)
+            else:
+                one_hot = (bids[:, None] == torch.arange(B, device=dev)
+                           ).to(torch.float32)
+                seg = one_hot.T @ m
+            muffle_acc += seg.to(torch.int32)
+        else:
+            if reorder:
+                # Outputs and the next bounce's rays back to the original
+                # order, in one packed row gather.
+                with torch.profiler.record_function("trace.restore"):
+                    rows = _pack_rows(t, echo_val, live_hit, p, muffle_inc,
+                                      o, d, life, alive).index_select(0, pos)
+                    t, echo_val = rows[:, 0], rows[:, 1]
+                    live_hit = _unpack_col(rows, 2, torch.bool)
+                    p = rows[:, 3:6]
+                    muffle_inc = rows[:, 6:6 + T] > 0.5
+                    o, d = rows[:, 6 + T:9 + T], rows[:, 9 + T:12 + T]
+                    life = rows[:, 12 + T]
+                    alive = _unpack_col(rows, 13 + T, torch.bool)
+            muffle_per_ray += muffle_inc.to(torch.int32)
+            if collect_debug:
+                hit_mask.append(live_hit)
+                hit_points.append(p)
+
         if step == 0:
+            # Bounce 0 is never reordered: original ray order.
             first_hit_t = t
         echoes.append(echo_val)
-        if collect_debug:
-            hit_mask.append(live_hit)
-            hit_points.append(p)
 
-    # Per-(accum batch, target) muffle counts: the per-thread-batch rows
-    # of AudioTargetManager.MuffleRayHits.
-    batch_ids = accum_batch_ids(R, cfg.num_accum_batches, dev)
-    muffle_hits = torch.zeros((cfg.num_accum_batches, T), dtype=torch.int32,
-                              device=dev).index_add_(0, batch_ids,
-                                                     muffle_per_ray)
+    if unordered:
+        muffle_hits = muffle_acc
+    else:
+        # Per-(accum batch, target) muffle counts: the per-thread-batch
+        # rows of AudioTargetManager.MuffleRayHits.
+        muffle_hits = muffle_acc.index_add_(0, batch_ids, muffle_per_ray)
 
     result = TraceResult(
         echo_distances=torch.stack(echoes, dim=1),  # [R, H]
         muffle_hits=muffle_hits,
-        permeation=torch.zeros((cfg.num_accum_batches, T), device=dev),
+        permeation=torch.zeros((B, T), device=dev),
         # Primary-ray first hit, reused by ops.permeation so it need not
         # scan the scene again.
         first_hit_t=first_hit_t,

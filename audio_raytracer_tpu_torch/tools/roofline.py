@@ -1,0 +1,352 @@
+"""Speed-of-light roofline of the port on one NVIDIA card.
+
+The counterpart of the JAX package's ``tools/roofline.py``, in four parts:
+
+1. ``ceiling()``: B9 (``ops/cuda/calibrate.py``) runs counted chains of
+   the production op mix, "fma4" and "occl", at 88 and 176 float32
+   operations per primitive. The marginal rate between the two cancels
+   the per-primitive loop overhead and is the card's instruction-rate
+   ceiling for that stream; the ceiling is the larger of the two mixes
+   (the JAX tool's convention). It also reads the machine code back
+   (``cuobjdump -sass``): each loop body must hold exactly the counted
+   float32 instructions, with no FFMA fusion and no hoisting.
+2. ``participation()``: the hit-count histogram of the compacted headline
+   forward at max_ray_life 300 and 125, P(hit_count >= k), and the sum
+   of those shares, the number of full sweeps of the closest-hit and
+   occlusion kernels over all rays (a lower estimate).
+3. ``standalone()``: B1-B8 alone at the JAX tool's shapes (1,048,576
+   rays, origins uniform in (-50, 50), Fibonacci directions and their
+   rolls, limits 80, cotangents |N(0, 1)| x 1e-3), CUDA-event medians,
+   each rate against the ceiling with the port's own op counts
+   (``ops/cuda/kernels.py::OPS``, ``ops/cuda/fused.py``) on the headline
+   scene's 1,024 spheres, 2,048 AABBs and 1,024 OBBs.
+4. ``floors()``: counted operations x participation / ceiling for the
+   forward at both lives and for the materials training step, beside
+   measured medians.
+
+Run on the card: ``python -m audio_raytracer_tpu_torch.tools.roofline``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import statistics
+import time
+
+import torch
+
+from audio_raytracer_tpu_torch.ops.backend import NO_SKIP, ray_chunks
+from audio_raytracer_tpu_torch.ops.cuda import calibrate as C
+from audio_raytracer_tpu_torch.ops.cuda import fused as F
+from audio_raytracer_tpu_torch.ops.cuda import kernels as K
+from audio_raytracer_tpu_torch.types import TraceConfig, resolve_device
+
+R = 1 << 20
+HEADLINE_SCENE = dict(num_spheres=1024, num_aabbs=2048, num_obbs=1024,
+                      num_targets=4, extent=60.0, size_range=(0.5, 4.0))
+LIVES = (300.0, 125.0)
+# Calibration shape: lanes in blocks of the JAX tool's (8, 512) ray block,
+# enough of them for WAVES full waves of resident threads on every SM (a
+# partial last wave would scale both points of the marginal rate, not
+# cancel), and the JAX tool's 4,096 primitives, so that a 176-op call
+# takes four times the 6.4 ms it took with 1,024 primitives on an H100,
+# where the marginal rate spread over 5 % between runs.
+LANES_PER_BLOCK = 8 * 512
+WAVES = 4
+CAL_PRIMS = 4096
+
+
+def cuda_ms(fn, reps):
+    """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events),
+    after one warm-up run."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def headline_scene(device="cuda"):
+    from audio_raytracer_tpu_torch.models.raytracer import random_scene
+
+    return random_scene(0, **HEADLINE_SCENE, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Counted operations
+# ---------------------------------------------------------------------------
+
+
+def pair_ops(fields: K.Fields, rays: int, S: int, table) -> int:
+    """Float operations of ``rays`` rays x S sets against every primitive,
+    from per-type (shared, per set) counts."""
+    return rays * sum(n * (a + b * S) for n, (a, b) in zip(
+        fields.counts, (table["sphere"], table["aabb"], table["obb"])))
+
+
+def closest_ops(fields: K.Fields, rays: int) -> int:
+    """B1's float operations for ``rays`` live rays."""
+    return pair_ops(fields, rays, 0, {k: (v, 0) for k, v in K.OPS.items()})
+
+
+def any_hit_work(fields: K.Fields, o, d, limit, skip) -> tuple:
+    """(ray, primitive) pairs per type that B6 must test: each ray walks
+    the primitives in scan order up to its first occluder, all of them
+    when nothing occludes it."""
+    counts, P = fields.counts, fields.total
+    limit = K.ray_limits(limit, o.shape[0], o.device)
+    walked = torch.zeros(3, dtype=torch.int64, device=o.device)
+    for c in ray_chunks(o.shape[0], P):
+        grid = K.any_hit_grid(fields, o[c], d[c], limit[c], skip)
+        first = grid.to(torch.uint8).argmax(dim=-1)
+        n = torch.where(grid.any(dim=-1), first + 1, P)
+        start = 0
+        for k, cnt in enumerate(counts):
+            walked[k] += (n - start).clamp(0, cnt).sum()
+            start += cnt
+    return tuple(int(x) for x in walked)
+
+
+def any_hit_ops(fields: K.Fields, o, d, limit, skip) -> int:
+    work = any_hit_work(fields, o, d, limit, skip)
+    return sum(w * K.OPS[k] for w, k in zip(work, ("sphere", "aabb", "obb")))
+
+
+# ---------------------------------------------------------------------------
+# 1. The ceiling
+# ---------------------------------------------------------------------------
+
+
+def calibration_blocks(dev) -> int:
+    props = torch.cuda.get_device_properties(dev)
+    threads = props.multi_processor_count * \
+        props.max_threads_per_multi_processor
+    return max(1, WAVES * threads // LANES_PER_BLOCK)
+
+
+def calibrate(mix: str, ops_per_iter: int, blocks: int, prims: int,
+              reps: int, dev):
+    """(median ms, counted operations) of one B9 call."""
+    x = torch.full((blocks * 8, 512), 0.5, device=dev)
+    fields = [torch.linspace(0.9, 1.1, prims, device=dev) + 1e-3 * i
+              for i in range(6)]
+    ms = cuda_ms(lambda: C.run_calibrate(mix, ops_per_iter, x, fields), reps)
+    return ms, C.counted_ops(mix, ops_per_iter, x.numel(), prims)
+
+
+def ceiling(device="cuda", prims=CAL_PRIMS, reps=9, log=print) -> dict:
+    """The measured float32 rate ceiling (operations per second) and
+    what it rests on: per mix the (ms, ops) points and marginal rate, the
+    calibration shape, and the SASS loop-body counts."""
+    dev = resolve_device(device)
+    blocks = calibration_blocks(dev)
+    lanes = blocks * LANES_PER_BLOCK
+    log(f"calibration shape: {lanes} lanes ({blocks} blocks of (8, 512)) x "
+        f"{prims} primitives")
+    rates, points = {}, {}
+    for mix in C.MIXES:
+        pts = {n: calibrate(mix, n, blocks, prims, reps, dev)
+               for n in C.OPS_PER_ITER}
+        for n, (ms, ops) in pts.items():
+            log(f"  {mix} {n} ops/iter: {ms:.4f} ms "
+                f"({ops / ms / 1e9:.3f} T ops/s raw)")
+        (ms1, o1), (ms2, o2) = (pts[n] for n in C.OPS_PER_ITER)
+        rates[mix] = (o2 - o1) / ((ms2 - ms1) * 1e-3)
+        points[mix] = pts
+        log(f"  {mix} marginal: {rates[mix] / 1e12:.3f} T ops/s")
+    ceil = max(rates.values())
+    log(f"measured ceiling: {ceil / 1e12:.3f} T float32 ops/s")
+    sass = C.sass_loop_counts()
+    for key in sorted(sass):
+        fp32, hist = sass[key]
+        log(f"  SASS loop body {key[0]} {key[1]}: {fp32} float32 "
+            f"instructions; opcodes {hist}")
+    return dict(ceiling=ceil, rates=rates, points=points, sass=sass,
+                lanes=lanes, prims=prims)
+
+
+# ---------------------------------------------------------------------------
+# 2. Participation
+# ---------------------------------------------------------------------------
+
+
+def participation(scene, dirs, lives=LIVES, max_bounces=4, device="cuda",
+                  log=print) -> dict:
+    """{life: dict(ge=[P(hit_count >= k) for k = 1..H], sweeps=sum)} of
+    the compacted forward from the origin along ``dirs``."""
+    from audio_raytracer_tpu_torch.models.raytracer import forward
+
+    dev = resolve_device(device)
+    out = {}
+    for life in lives:
+        cfg = TraceConfig(ray_count=dirs.shape[0], max_bounces=max_bounces,
+                          max_ray_life=life, max_muffle_hit_distance=250.0,
+                          compact_rays=True)
+        with torch.no_grad():
+            res, _ = forward(torch.zeros(3, device=dev), dirs, scene, cfg,
+                             collect_debug=True, backend="kernel",
+                             device=dev)
+        hist = torch.bincount(res.hit_counts.long(),
+                              minlength=cfg.max_hits_per_ray + 1)
+        hist = hist.double() / dirs.shape[0]
+        ge = hist.flip(0).cumsum(0).flip(0)[1:].tolist()
+        out[life] = dict(ge=ge, sweeps=sum(ge))
+        log(f"life={life}: P(hit_count >= 1..{len(ge)}) = "
+            f"{[round(x, 4) for x in ge]} -> closest/occlusion sweeps "
+            f"(lower) = {out[life]['sweeps']:.4f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 3. Standalone kernel rates
+# ---------------------------------------------------------------------------
+
+
+def standalone(scene, dirs, ceil, device="cuda", reps=5, log=print) -> dict:
+    """{kernel: (median ms, counted ops)} of B1-B8 at the JAX tool's
+    shapes, each rate printed against the ceiling."""
+    from audio_raytracer_tpu_torch.ops.cuda.backend import prepare_fields
+
+    dev = resolve_device(device)
+    fields = prepare_fields(scene)
+    n = dirs.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    o = torch.rand((n, 3), generator=gen, device=dev) * 100.0 - 50.0
+    dirs5 = [dirs] + [torch.roll(dirs, 17 * (i + 1), dims=0).contiguous()
+                      for i in range(4)]
+    limits = torch.full((n, 5), 80.0, device=dev)
+    init = torch.zeros((n, 5), dtype=torch.bool, device=dev)
+    gbar = torch.randn((n, 4), generator=gen, device=dev).abs() * 1e-3
+    g1 = gbar[:, 0].contiguous()
+    skips4 = (0, 1, 2, 3)
+    cases = (
+        ("B1 closest", lambda: K.run_closest_hit(fields, o, dirs),
+         closest_ops(fields, n)),
+        ("B2 occl S=5", lambda: F.run_multi_any_hit(
+            fields, o, dirs5, limits, (NO_SKIP,) + skips4, init),
+         pair_ops(fields, n, 5, F.OCC_OPS)),
+        ("B3 chord S=4", lambda: F.run_multi_chord(fields, o, dirs5[1:],
+                                                   skips4),
+         pair_ops(fields, n, 4, F.CHORD_OPS)),
+        ("B4 dens-bwd S=4", lambda: F.run_multi_chord_dens_bwd(
+            fields, o, dirs5[1:], skips4, gbar),
+         pair_ops(fields, n, 4, F.CHORD_OPS)),
+        ("B5 full-bwd S=4", lambda: F.run_multi_chord_bwd(
+            fields, o, dirs5[1:], skips4, gbar),
+         pair_ops(fields, n, 4, F.CHORD_BWD_OPS) + 2 * 4 * n * fields.total),
+        ("B6 any-hit", lambda: K.run_any_hit(fields, o, dirs, 80.0, NO_SKIP),
+         any_hit_ops(fields, o, dirs, 80.0, NO_SKIP)),
+        ("B7 chord", lambda: K.run_chord_loss(fields, o, dirs, 0),
+         pair_ops(fields, n, 1, F.CHORD_OPS)),
+        ("B8 chord-bwd", lambda: K.run_chord_loss_bwd(fields, o, dirs, 0, g1),
+         pair_ops(fields, n, 1, F.CHORD_BWD_BALANCED_OPS)
+         + 2 * n * fields.total),
+    )
+    out = {}
+    for name, fn, ops in cases:
+        ms = cuda_ms(fn, reps)
+        rate = ops / (ms * 1e-3)
+        out[name] = (ms, ops)
+        log(f"{name}: {ms:.4f} ms, {ops / 1e12:.4f}e12 counted ops, "
+            f"{rate / 1e12:.3f} T ops/s = {rate / ceil:.1%} of the ceiling")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 4. Floors
+# ---------------------------------------------------------------------------
+
+
+def floors(ceil, sweeps, fields: K.Fields, rays=R, measured=None,
+           log=print) -> dict:
+    """{cell: floor ms}: counted ops x participation / ceiling for the
+    forward at each life in ``sweeps`` ("fwd life=...") and for the
+    materials training step at the first life ("materials step"), beside
+    ``measured`` medians (ms, same keys) where given. The forward runs B3
+    on one ray per accumulation batch, which the floor leaves out."""
+    measured = measured or {}
+    per_sweep = closest_ops(fields, rays) + pair_ops(fields, rays, 5,
+                                                    F.OCC_OPS)
+    chords = pair_ops(fields, rays, 4, F.CHORD_OPS)
+    cells = {f"fwd life={life:g}": s["sweeps"] * per_sweep
+             for life, s in sweeps.items()}
+    # B3 forward on every ray, then B4 over the same chords.
+    first = next(iter(sweeps.values()))["sweeps"]
+    cells["materials step"] = first * per_sweep + 2 * chords
+    out = {}
+    for cell, ops in cells.items():
+        out[cell] = ops / ceil * 1e3
+        got = measured.get(cell)
+        log(f"{cell}: counted {ops / 1e12:.4f}e12 ops -> floor "
+            f"{out[cell]:.2f} ms at {ceil / 1e12:.3f} T ops/s"
+            + (f"; measured median {got:.2f} ms ({out[cell] / got:.1%} "
+               f"of it)" if got else ""))
+    return out
+
+
+def measure_medians(scene, dirs, dev, steps=3) -> dict:
+    """Host-clock medians (ms) of the compacted headline frame
+    (``compact_rays`` and ``compact_unordered``, bench.py's production
+    forward) at each life, and of the materials training step."""
+    from audio_raytracer_tpu_torch.models import differentiable as D
+    from audio_raytracer_tpu_torch.models.raytracer import make_forward
+
+    def median(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    origin = torch.zeros(3, device=dev)
+    out = {}
+    base = TraceConfig(ray_count=dirs.shape[0], max_bounces=4,
+                       max_muffle_hit_distance=250.0, compact_rays=True,
+                       compact_unordered=True)
+    for life in LIVES:
+        step = make_forward(dataclasses.replace(base, max_ray_life=life),
+                            device=dev)
+        out[f"fwd life={life:g}"] = median(lambda: step(origin, dirs, scene))
+    cfg = dataclasses.replace(base, max_ray_life=LIVES[0],
+                              compact_rays=False, compact_unordered=False)
+    target = D.Loudness(
+        muffle=torch.full((scene.num_targets,), 0.3, device=dev),
+        permeation=torch.full((scene.num_targets,), 0.2, device=dev),
+        reverb_energy=torch.tensor(0.05, device=dev))
+    params = D.SceneParams.from_scene(scene)
+    train, init = D.make_train_step(cfg, device=dev)
+    opt = init(params)
+    out["materials step"] = median(
+        lambda: train(params, opt, scene, origin, dirs, target))
+    return out
+
+
+def main():
+    from audio_raytracer_tpu_torch.ops.cuda.backend import prepare_fields
+    from audio_raytracer_tpu_torch.ops.fibonacci import fibonacci_directions
+
+    dev = resolve_device("cuda")
+    t0 = time.perf_counter()
+    print("device:", torch.cuda.get_device_name(dev))
+    ceil = ceiling(dev)["ceiling"]
+    scene = headline_scene(dev)
+    dirs = fibonacci_directions(R, device=dev)
+    sweeps = participation(scene, dirs, device=dev)
+    standalone(scene, dirs, ceil, device=dev)
+    floors(ceil, sweeps, prepare_fields(scene),
+           measured=measure_medians(scene, dirs, dev))
+    print(f"roofline: {time.perf_counter() - t0:.1f} s")
+
+
+if __name__ == "__main__":
+    main()

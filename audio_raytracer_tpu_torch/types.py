@@ -10,7 +10,9 @@ defaults and conventions are the same:
 - ``active`` masks padding primitives.
 
 Containers are plain dataclasses of tensors; every tensor of one scene
-lives on one device, chosen explicitly by the caller.
+lives on one device. The constructors default to ``device="cuda"`` and
+raise without a card (``resolve_device``); ask for ``device="cpu"``
+explicitly.
 """
 
 from __future__ import annotations
@@ -89,7 +91,8 @@ class Materials:
     echo: Tensor
 
     @staticmethod
-    def default(n: int, device="cpu") -> "Materials":
+    def default(n: int, device="cuda") -> "Materials":
+        device = resolve_device(device)
         return Materials(
             absorption=torch.zeros((n,), device=device),
             density=torch.ones((n,), device=device),
@@ -112,12 +115,13 @@ class Spheres:
     active: Tensor
 
     @staticmethod
-    def empty(device="cpu") -> "Spheres":
+    def empty(device="cuda") -> "Spheres":
         return Spheres.build(np.zeros((0, 3)), np.zeros((0,)), device=device)
 
     @staticmethod
     def build(center, radius, material=None, target_id=None, active=None,
-              device="cpu") -> "Spheres":
+              device="cuda") -> "Spheres":
+        device = resolve_device(device)
         n = _rows(center)
         return Spheres(
             _f32(center, n, 3, device), _f32(radius, n, 0, device),
@@ -141,12 +145,13 @@ class Aabbs:
     active: Tensor
 
     @staticmethod
-    def empty(device="cpu") -> "Aabbs":
+    def empty(device="cuda") -> "Aabbs":
         return Aabbs.build(np.zeros((0, 3)), np.zeros((0, 3)), device=device)
 
     @staticmethod
     def build(center, half_extents, material=None, target_id=None,
-              active=None, device="cpu") -> "Aabbs":
+              active=None, device="cuda") -> "Aabbs":
+        device = resolve_device(device)
         n = _rows(center)
         return Aabbs(
             _f32(center, n, 3, device), _f32(half_extents, n, 3, device),
@@ -172,13 +177,14 @@ class Obbs:
     active: Tensor
 
     @staticmethod
-    def empty(device="cpu") -> "Obbs":
+    def empty(device="cuda") -> "Obbs":
         return Obbs.build(np.zeros((0, 3)), np.zeros((0, 3)),
                           np.zeros((0, 4)), device=device)
 
     @staticmethod
     def build(center, half_extents, inv_rot, material=None, target_id=None,
-              active=None, device="cpu") -> "Obbs":
+              active=None, device="cuda") -> "Obbs":
+        device = resolve_device(device)
         n = _rows(center)
         return Obbs(
             _f32(center, n, 3, device), _f32(half_extents, n, 3, device),
@@ -215,7 +221,8 @@ class Scene:
 
     @staticmethod
     def build(spheres=None, aabbs=None, obbs=None, target_positions=None,
-              device="cpu") -> "Scene":
+              device="cuda") -> "Scene":
+        device = resolve_device(device)
         tp = np.zeros((0, 3)) if target_positions is None \
             else target_positions
         n_t = _rows(tp)
@@ -243,9 +250,17 @@ class TraceConfig:
     and permeation accumulators are kept per batch, and the permeation
     overwrite quirk (ops/permeation.py) depends on it.
 
-    Not yet ported: ray compaction (``compact_rays``) and the bfloat16
-    compute tier (``compute_dtype="bfloat16"``) raise NotImplementedError.
-    ``compact_unordered`` only acts together with ``compact_rays``.
+    ``compact_rays``: between bounces, reorder the rays alive-first, so
+    that the kernels' dead-lane skips find whole blocks of dead rays
+    (ops/trace.py; only engines that skip dead lanes, the kernel backend,
+    reorder). ``compact_unordered``: with ``compact_rays``, also skip the
+    per-bounce restore of the ray order: ``TraceResult.echo_distances``
+    then comes back permuted within each bounce column, which every
+    reduction downstream ignores. Ignored where ``collect_debug`` needs
+    ordered rows.
+
+    Not yet ported: the bfloat16 compute tier
+    (``compute_dtype="bfloat16"``) raises NotImplementedError.
     """
 
     ray_count: int = 500
@@ -269,9 +284,6 @@ class TraceConfig:
     compact_unordered: bool = False
 
     def __post_init__(self):
-        if self.compact_rays:
-            raise NotImplementedError(
-                "compact_rays is not ported to the PyTorch package yet")
         if self.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype!r}: only float32 is "

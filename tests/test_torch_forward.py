@@ -84,7 +84,7 @@ def jax_runs():
 
 def run_port(js, dirs, name, backend):
     cfg = ttypes.TraceConfig(**CONFIGS[name][1])
-    scene = scene_from_arrays(jax.tree.map(np.asarray, js))
+    scene = scene_from_arrays(jax.tree.map(np.asarray, js), device="cpu")
     return tmodel.forward(torch.zeros(3), torch.as_tensor(np.array(dirs)),
                           scene, cfg, collect_debug=True, backend=backend,
                           device="cpu")

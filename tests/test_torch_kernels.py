@@ -39,7 +39,7 @@ torch.set_num_threads(1)
 
 
 def carry(jscene):
-    return scene_from_arrays(jax.tree.map(np.asarray, jscene))
+    return scene_from_arrays(jax.tree.map(np.asarray, jscene), device="cpu")
 
 
 def t(x, dtype=torch.float32):

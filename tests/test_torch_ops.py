@@ -40,7 +40,7 @@ GEOM = dict(rtol=1e-6, atol=1e-5)
 
 
 def carry(jscene):
-    return scene_from_arrays(jax.tree.map(np.asarray, jscene))
+    return scene_from_arrays(jax.tree.map(np.asarray, jscene), device="cpu")
 
 
 def t(x, dtype=torch.float32):
@@ -77,12 +77,12 @@ def rays():
 class TestFibonacci:
     @pytest.mark.parametrize("n", [2, 37, 256])
     def test_matches_jax(self, n):
-        assert_close(tfib.fibonacci_directions(n),
+        assert_close(tfib.fibonacci_directions(n, device="cpu"),
                      jfib.fibonacci_directions(n), rtol=1e-5, atol=1e-6)
 
     def test_single_ray_is_nan(self):
         # The reference's n - 1 denominator: 0 / 0.
-        assert torch.isnan(tfib.fibonacci_directions(1)[0, 1])
+        assert torch.isnan(tfib.fibonacci_directions(1, device="cpu")[0, 1])
 
 
 class TestQuaternion:
@@ -219,11 +219,31 @@ class TestTypesAndConvert:
             assert getattr(ttypes.TraceConfig(), f.name) == \
                 getattr(jtypes.TraceConfig(), f.name), f.name
 
-    @pytest.mark.parametrize("kw", [dict(compact_rays=True),
-                                    dict(compute_dtype="bfloat16")])
+    # Compaction is ported; the bfloat16 tier is not, with or without it.
+    @pytest.mark.parametrize("kw", [dict(compute_dtype="bfloat16"),
+                                    dict(compute_dtype="bfloat16",
+                                         compact_rays=True)])
     def test_later_slices_raise(self, kw):
         with pytest.raises(NotImplementedError):
             ttypes.TraceConfig(**kw)
+
+    @pytest.mark.parametrize("make", [
+        lambda: tfib.fibonacci_directions(8),
+        lambda: ttypes.Materials.default(2),
+        lambda: ttypes.Spheres.build([[0, 0, 0]], [1.0]),
+        lambda: ttypes.Aabbs.empty(),
+        lambda: ttypes.Obbs.build([[0, 0, 0]], [[1, 1, 1]], [[0, 0, 0, 1]]),
+        lambda: ttypes.Scene.build(),
+        lambda: scene_from_arrays(jax.tree.map(np.asarray, j_random_scene(
+            jax.random.key(0), 1, 1, 1))),
+    ], ids=["fibonacci", "materials", "spheres", "aabbs", "obbs", "scene",
+            "convert"])
+    def test_constructors_default_to_the_card(self, monkeypatch, make):
+        # No CUDA device: a default call raises resolve_device's error
+        # instead of building on the CPU.
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
     def test_scene_carried_across(self, jscene, scene):
         flat, _ = jax.tree.flatten(jscene)

@@ -51,7 +51,7 @@ GRAD = dict(rtol=2e-4, atol=2e-6)
 
 
 def carry(jscene):
-    return scene_from_arrays(jax.tree.map(np.asarray, jscene))
+    return scene_from_arrays(jax.tree.map(np.asarray, jscene), device="cpu")
 
 
 def t(x, grad=False):
@@ -326,7 +326,7 @@ def port_grads(grad_setup, backend, with_pose=True):
     tp = scene.target_positions.clone().requires_grad_(with_pose)
     loss = tdiff.loudness_loss(params, scene.replace(target_positions=tp),
                                origin, t(dirs), cfg,
-                               loudness_from_arrays(jtarget),
+                               loudness_from_arrays(jtarget, device="cpu"),
                                backend=backend, device="cpu")
     loss.backward()
     return loss, [x.grad for x in params.leaves()] + [origin.grad, tp.grad]
@@ -447,9 +447,10 @@ class TestTraining:
                                            backend=backend, device="cpu")
         scene = carry(jscene)
         params = params_from_arrays(
-            jax.tree.map(np.asarray, jdiff.SceneParams.from_scene(jscene)))
+            jax.tree.map(np.asarray, jdiff.SceneParams.from_scene(jscene)),
+            device="cpu")
         opt = init(params)
-        target = loudness_from_arrays(jtarget)
+        target = loudness_from_arrays(jtarget, device="cpu")
         for jparams, jloss in trail:
             params, opt, loss = step(params, opt, scene, torch.zeros(3),
                                      t(dirs), target)
@@ -467,7 +468,7 @@ class TestTraining:
                                 target_positions=scene.target_positions
                                 .clone())
         pose, _, loss = step(pose, init(pose), scene, t(dirs),
-                             loudness_from_arrays(jtarget))
+                             loudness_from_arrays(jtarget, device="cpu"))
         np.testing.assert_allclose(float(loss), jloss, rtol=1e-5)
         close(pose.origin, jpose.origin, **TRAIN)
         close(pose.target_positions, jpose.target_positions, **TRAIN)
@@ -488,7 +489,8 @@ class TestTraining:
         step, init = tdiff.make_source_recovery_step(
             ttypes.TraceConfig(**cfg_kw), 2, backend="kernel", device="cpu")
         rec = tdiff.stack_loudness([
-            loudness_from_arrays(jax.tree.map(np.asarray, r)) for r in recs])
+            loudness_from_arrays(jax.tree.map(np.asarray, r), device="cpu")
+            for r in recs])
         tp = t(tp0)
         tp, _, loss = step(tp, init(tp), carry(jscene), t(origins), t(dirs),
                            rec)
@@ -546,7 +548,8 @@ class TestDeviceRules:
             with pytest.raises(RuntimeError, match="CUDA"):
                 make()
         scene = scene_from_arrays(jax.tree.map(
-            np.asarray, j_random_scene(jax.random.key(0), 2, 2, 2)))
+            np.asarray, j_random_scene(jax.random.key(0), 2, 2, 2)),
+            device="cpu")
         with pytest.raises(RuntimeError, match="CUDA"):
             tdiff.loudness_map(torch.zeros(3), torch.ones((8, 3)), scene,
                                cfg)
@@ -554,7 +557,8 @@ class TestDeviceRules:
     def test_inputs_must_lie_on_the_device(self):
         cfg = ttypes.TraceConfig(ray_count=8)
         scene = scene_from_arrays(jax.tree.map(
-            np.asarray, j_random_scene(jax.random.key(0), 2, 2, 2)))
+            np.asarray, j_random_scene(jax.random.key(0), 2, 2, 2)),
+            device="cpu")
         with pytest.raises(ValueError, match="origin"):
             tdiff.loudness_map(torch.zeros(3, device="meta"),
                                torch.ones((8, 3)), scene, cfg, device="cpu")
