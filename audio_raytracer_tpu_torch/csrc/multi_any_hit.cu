@@ -13,157 +13,237 @@
 // Box tests share the per-primitive (bound - origin) terms across sets.
 // Lanes with init bits set come back occluded.
 //
-// Design: one thread per ray, S compile-time sets held in registers,
-// primitive rows staged per block in shared memory. A lane whose sets are
-// all pre-resolved writes its init bits and skips the loop; a block of
-// such lanes skips the tiles. The loop does not stop early when every set
-// is occluded: the work is the same for every live lane.
-//
 // Bound on the H100: float32 operations outside the tensor cores, per
 // (live ray, primitive): sphere 10 + 15 S, AABB 6 + 21 S, OBB 27 + 42 S
-// (ops/cuda/fused.py::OCC_OPS), against 67 TFLOP/s. S = 1 + T is 5 on
-// the headline workload.
+// (ops/cuda/fused.py::OCC_OPS; the per-set part only for the (ray, set)
+// pairs not resolved on entry), against the issue ceiling that B9
+// measures (about 33.7 T ops/s). S = 1 + T is 5 on the headline workload.
+//
+// What the machine code showed (PERF.md): at S = 5 the loop bodies
+// issued 128, 167 and 540 instructions per (ray, sphere / AABB / OBB) for
+// 85, 111 and 237 counted: per set the skip-target compare and a
+// short-circuit branch around the accumulator; per OBB reciprocal nvcc's
+// range test and slow-path branch (15 per (ray, OBB)). Staging and
+// occupancy cost little. The design:
+//
+// - The wrapper splits each type's rows into those owned by none of the
+//   launch's skip targets, walked with no skip compare, and those owned by
+//   one, walked with it; inactive rows are left out (they never hit, and
+//   the occlusion is an OR, so the order and the rows' ranks are free).
+// - Set results are OR-ed into a bit mask by predicated instructions; the
+//   miss select of the slab folds into the limit test (slab_within).
+// - OBB reciprocals through rcp_newton, bit-identical to 1.0f / x, with one
+//   range test per (ray, OBB) for all sets, which also stands in for the
+//   nudge; a ray outside the range recomputes that row with safe_inv.
+// - Tiles staged by TMA into a two-buffer ring (fields.cuh ring_*), one
+//   barrier per tile.
+// - One thread per ray: two rays per thread (at S = 5 they need 128
+//   registers and halve the resident warps), and packing a block's live
+//   rays onto its first warps, were built and measured and bought nothing
+//   (PERF.md). A lane whose sets are all resolved on entry skips the
+//   rows, a block of such lanes the tiles.
+// - The walk does not stop early: on the headline frame's bounce rays no
+//   warp has every set resolved by mid-walk (PERF.md).
+//
+// What still holds it back: the compare, min / max, select and predicate
+// instructions (about 80 of the 127 per (ray, AABB) at S = 5), which
+// appear to issue at most every other cycle; the bound counts them at
+// the FFMA rate.
 
 #include "fields.cuh"
 
+template <int S>
+struct OccRay {
+  float ox, oy, oz;
+  float dx[S], dy[S], dz[S], lim[S], ix[S], iy[S], iz[S];
+  unsigned acc;  // bit s: set s occluded or resolved on entry
+};
+
+template <int S, bool OWNED>
+__device__ __forceinline__ void sphere_row(const float* p, OccRay<S>& y,
+                                           const Skips& sk) {
+  const int tgt = as_id(p[4]);
+  const float ocx = y.ox - p[0], ocy = y.oy - p[1], ocz = y.oz - p[2];
+  const float c = (ocx * ocx + ocy * ocy + ocz * ocz) - p[3];
+  const bool c_pos = c >= 0.0f;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const float h = ocx * y.dx[s] + ocy * y.dy[s] + ocz * y.dz[s];
+    const float hl = h + y.lim[s];
+    const float q = y.lim[s] * (hl + h) + c;
+    const bool entering = c_pos & (h <= 0.0f) & ((hl > 0.0f) | (q < 0.0f));
+    const bool inside = !c_pos & (hl > 0.0f) & (q > 0.0f);
+    bool occ = (h * h >= c) & (entering | inside);
+    if constexpr (OWNED) occ &= tgt != sk.v[s];
+    if (occ) y.acc |= 1u << s;
+  }
+}
+
+// slab_hit(tn, tf) + miss < lim without the select of a miss: a miss is
+// +inf there, below no limit.
+__device__ __forceinline__ bool slab_within(float tn, float tf, float miss,
+                                            float lim) {
+  return !(tn > tf) & !(tf < 0.0f) & ((tn > 0.0f ? tn : tf) + miss < lim);
+}
+
+template <int S, bool OWNED>
+__device__ __forceinline__ void aabb_row(const float* p, OccRay<S>& y,
+                                         const Skips& sk) {
+  const int tgt = as_id(p[7]);
+  const float mnx = p[0] - y.ox, mny = p[1] - y.oy, mnz = p[2] - y.oz;
+  const float mxx = p[3] - y.ox, mxy = p[4] - y.oy, mxz = p[5] - y.oz;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    float tn, tf;
+    slab(mnx, mny, mnz, mxx, mxy, mxz, y.ix[s], y.iy[s], y.iz[s], tn, tf);
+    bool occ = slab_within(tn, tf, p[6], y.lim[s]);
+    if constexpr (OWNED) occ &= tgt != sk.v[s];
+    if (occ) y.acc |= 1u << s;
+  }
+}
+
+// The sets an OBB row occludes; NEWTON selects rcp_newton for the
+// reciprocals (ok: every local direction component in rcp_in_range) or
+// safe_inv.
+template <int S, bool OWNED, bool NEWTON>
+__device__ __forceinline__ unsigned obb_hits(const float* p,
+                                             const OccRay<S>& y,
+                                             const Skips& sk, bool& ok) {
+  const int tgt = as_id(p[16]);
+  float lox, loy, loz;
+  mat_rotate(p + 6, y.ox - p[0], y.oy - p[1], y.oz - p[2], lox, loy, loz);
+  const float mnx = -p[3] - lox, mny = -p[4] - loy, mnz = -p[5] - loz;
+  const float mxx = p[3] - lox, mxy = p[4] - loy, mxz = p[5] - loz;
+  unsigned hits = 0;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    float ldx, ldy, ldz;
+    mat_rotate(p + 6, y.dx[s], y.dy[s], y.dz[s], ldx, ldy, ldz);
+    float ix, iy, iz;
+    if constexpr (NEWTON) {
+      ok &= rcp_in_range(ldx) & rcp_in_range(ldy) & rcp_in_range(ldz);
+      ix = rcp_newton(ldx); iy = rcp_newton(ldy); iz = rcp_newton(ldz);
+    } else {
+      ix = safe_inv(ldx); iy = safe_inv(ldy); iz = safe_inv(ldz);
+    }
+    float tn, tf;
+    slab(mnx, mny, mnz, mxx, mxy, mxz, ix, iy, iz, tn, tf);
+    bool occ = slab_within(tn, tf, p[15], y.lim[s]);
+    if constexpr (OWNED) occ &= tgt != sk.v[s];
+    if (occ) hits |= 1u << s;
+  }
+  return hits;
+}
+
+template <int S, bool OWNED>
+__device__ __forceinline__ void obb_row(const float* p, OccRay<S>& y,
+                                        const Skips& sk) {
+  bool ok = true;
+  unsigned hits = obb_hits<S, OWNED, true>(p, y, sk, ok);
+  if (!ok) hits = obb_hits<S, OWNED, false>(p, y, sk, ok);
+  y.acc |= hits;
+}
+
+// The rows of one tile against the thread's ray.
+template <int S, int KIND, bool OWNED>
+__device__ __forceinline__ void walk_tile(const float* tile, OccRay<S>& y,
+                                          const Skips& sk) {
+  constexpr int W = KIND == 0 ? SPH_W : (KIND == 1 ? AABB_W : OBB_W);
+#pragma unroll 2
+  for (int j = 0; j < RING_TILE; ++j) {
+    const float* p = tile + j * W;
+    if constexpr (KIND == 0) sphere_row<S, OWNED>(p, y, sk);
+    if constexpr (KIND == 1) aabb_row<S, OWNED>(p, y, sk);
+    if constexpr (KIND == 2) obb_row<S, OWNED>(p, y, sk);
+  }
+}
+
+// s: six segments — per type (spheres, AABBs, OBBs) the rows owned by no
+// skip target of the launch, then the rows owned by one; each padded to
+// whole tiles with rows that never hit.
 template <int S>
 __global__ void __launch_bounds__(BLOCK)
 multi_any_hit_kernel(const float* __restrict__ o,
                      const float* __restrict__ dirs,
                      const float* __restrict__ limits,
                      const unsigned char* __restrict__ init, int R,
-                     Skips skips, const float* __restrict__ sph, int ns,
-                     const float* __restrict__ aabb, int na,
-                     const float* __restrict__ obb, int no,
+                     Skips skips, Stream s,
                      unsigned char* __restrict__ occ_out) {
-  __shared__ __align__(16) float tile[TILE * OBB_W];
+  __shared__ __align__(128) float ring[STAGES * RING_FLOATS];
+  __shared__ __align__(8) unsigned long long full[STAGES];
+  constexpr unsigned ALL = (1u << S) - 1u;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = r < R;
 
-  float ox = 0.f, oy = 0.f, oz = 0.f;
-  float dx[S], dy[S], dz[S], lim[S];
-  bool acc[S];
-  bool live = false;
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    dx[s] = dy[s] = dz[s] = lim[s] = 0.f;
-    acc[s] = true;
-  }
+  OccRay<S> y;
+  y.ox = y.oy = y.oz = 0.0f;
+  y.acc = ALL;
   if (in_range) {
-    ox = o[3 * r]; oy = o[3 * r + 1]; oz = o[3 * r + 2];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const size_t k = 3 * ((size_t)s * R + r);
-      dx[s] = dirs[k]; dy[s] = dirs[k + 1]; dz[s] = dirs[k + 2];
-      lim[s] = limits[(size_t)r * S + s];
-      acc[s] = init[(size_t)r * S + s] != 0;
-      live |= !acc[s];
-    }
+    y.ox = o[3 * r]; y.oy = o[3 * r + 1]; y.oz = o[3 * r + 2];
+    y.acc = 0;
   }
+#pragma unroll
+  for (int q = 0; q < S; ++q) {
+    y.dx[q] = y.dy[q] = y.dz[q] = y.lim[q] = 0.0f;
+    if (in_range) {
+      const size_t i = 3 * ((size_t)q * R + r);
+      y.dx[q] = dirs[i]; y.dy[q] = dirs[i + 1]; y.dz[q] = dirs[i + 2];
+      y.lim[q] = limits[(size_t)r * S + q];
+      if (init[(size_t)r * S + q] != 0) y.acc |= 1u << q;
+    }
+    y.ix[q] = safe_inv(y.dx[q]);
+    y.iy[q] = safe_inv(y.dy[q]);
+    y.iz[q] = safe_inv(y.dz[q]);
+  }
+  const bool live = y.acc != ALL;
 
+  // A block whose lanes are all resolved on entry: no primitive stream.
   if (__syncthreads_or(live)) {
-    float ix[S], iy[S], iz[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      ix[s] = safe_inv(dx[s]); iy[s] = safe_inv(dy[s]); iz[s] = safe_inv(dz[s]);
-    }
-
-    for (int base = 0; base < ns; base += TILE) {
-      const int n = min(TILE, ns - base);
-      __syncthreads();
-      load_tile(tile, sph, base, n, SPH_W);
-      __syncthreads();
-      if (live) {
-        for (int j = 0; j < n; ++j) {
-          const float* p = tile + j * SPH_W;
-          const int tgt = as_id(p[4]);
-          float ocx = ox - p[0], ocy = oy - p[1], ocz = oz - p[2];
-          float c = (ocx * ocx + ocy * ocy + ocz * ocz) - p[3];
-          bool c_pos = c >= 0.0f;
-#pragma unroll
-          for (int s = 0; s < S; ++s) {
-            float h = ocx * dx[s] + ocy * dy[s] + ocz * dz[s];
-            float hl = h + lim[s];
-            float q = lim[s] * (hl + h) + c;
-            bool entering = c_pos && (h <= 0.0f) && ((hl > 0.0f) || (q < 0.0f));
-            bool inside = !c_pos && (hl > 0.0f) && (q > 0.0f);
-            bool occ = (h * h >= c) && (entering || inside) && tgt != skips.v[s];
-            acc[s] = acc[s] || occ;
-          }
-        }
-      }
-    }
-    for (int base = 0; base < na; base += TILE) {
-      const int n = min(TILE, na - base);
-      __syncthreads();
-      load_tile(tile, aabb, base, n, AABB_W);
-      __syncthreads();
-      if (live) {
-        for (int j = 0; j < n; ++j) {
-          const float* p = tile + j * AABB_W;
-          const int tgt = as_id(p[7]);
-          float mnx = p[0] - ox, mny = p[1] - oy, mnz = p[2] - oz;
-          float mxx = p[3] - ox, mxy = p[4] - oy, mxz = p[5] - oz;
-#pragma unroll
-          for (int s = 0; s < S; ++s) {
-            float tn, tf;
-            slab(mnx, mny, mnz, mxx, mxy, mxz, ix[s], iy[s], iz[s], tn, tf);
-            float t = slab_hit(tn, tf) + p[6];
-            acc[s] = acc[s] || ((t < lim[s]) && tgt != skips.v[s]);
-          }
-        }
-      }
-    }
-    for (int base = 0; base < no; base += TILE) {
-      const int n = min(TILE, no - base);
-      __syncthreads();
-      load_tile(tile, obb, base, n, OBB_W);
-      __syncthreads();
-      if (live) {
-        for (int j = 0; j < n; ++j) {
-          const float* p = tile + j * OBB_W;
-          const int tgt = as_id(p[16]);
-          float lox, loy, loz;
-          mat_rotate(p + 6, ox - p[0], oy - p[1], oz - p[2], lox, loy, loz);
-          float mnx = -p[3] - lox, mny = -p[4] - loy, mnz = -p[5] - loz;
-          float mxx = p[3] - lox, mxy = p[4] - loy, mxz = p[5] - loz;
-#pragma unroll
-          for (int s = 0; s < S; ++s) {
-            float ldx, ldy, ldz;
-            mat_rotate(p + 6, dx[s], dy[s], dz[s], ldx, ldy, ldz);
-            float tn, tf;
-            slab(mnx, mny, mnz, mxx, mxy, mxz, safe_inv(ldx), safe_inv(ldy),
-                 safe_inv(ldz), tn, tf);
-            float t = slab_hit(tn, tf) + p[15];
-            acc[s] = acc[s] || ((t < lim[s]) && tgt != skips.v[s]);
-          }
-        }
-      }
-    }
+    ring_start(s, ring, full);
+    int t = 0;
+#define WALK(SEG, KIND, OWNED)                                            \
+  for (int k = 0; k < s.tiles[SEG]; ++k, ++t) {                           \
+    const float* tile = ring_wait(ring, full, t);                         \
+    if (live) walk_tile<S, KIND, OWNED>(tile, y, skips);                  \
+    ring_release(s, ring, full, t);                                       \
+  }
+    WALK(0, 0, false) WALK(1, 0, true)
+    WALK(2, 1, false) WALK(3, 1, true)
+    WALK(4, 2, false) WALK(5, 2, true)
+#undef WALK
   }
   if (in_range) {
 #pragma unroll
-    for (int s = 0; s < S; ++s) occ_out[(size_t)r * S + s] = acc[s] ? 1 : 0;
+    for (int q = 0; q < S; ++q)
+      occ_out[(size_t)r * S + q] = (y.acc >> q) & 1u;
   }
 }
 
 #define LAUNCH_SETS(N)                                                      \
   case N:                                                                   \
-    multi_any_hit_kernel<N><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(      \
-        o, dirs, limits, init, R, sk, sph, ns, aabb, na, obb, no, occ_out); \
+    multi_any_hit_kernel<N><<<(R + BLOCK - 1) / BLOCK, BLOCK, 0,            \
+                              (cudaStream_t)stream>>>(                      \
+        o, dirs, limits, init, R, sk, st, occ_out);                         \
     break;
 
+// Per type: the table and its counts of rows owned by no skip target of
+// this launch (first) and by one (after the first part's padding to whole
+// tiles); each part is padded to whole tiles with rows that never hit.
 extern "C" int multi_any_hit(const float* o, const float* dirs,
                              const float* limits, const unsigned char* init,
                              int R, int S, const int* skips,
-                             const float* sph, int ns, const float* aabb,
-                             int na, const float* obb, int no,
+                             const float* sph, int ns_free, int ns_owned,
+                             const float* aabb, int na_free, int na_owned,
+                             const float* obb, int no_free, int no_owned,
                              unsigned char* occ_out, void* stream) {
   if (S < 1 || S > MAX_SETS) return (int)cudaErrorInvalidValue;
   if (R == 0) RETURN_LAST_ERROR;
   Skips sk;
   for (int s = 0; s < MAX_SETS; ++s) sk.v[s] = s < S ? skips[s] : 0;
-  const int grid = (R + BLOCK - 1) / BLOCK;
+  Stream st{};
+  stream_add(st, stream_add(st, sph, ns_free, SPH_W), ns_owned, SPH_W);
+  stream_add(st, stream_add(st, aabb, na_free, AABB_W), na_owned, AABB_W);
+  stream_add(st, stream_add(st, obb, no_free, OBB_W), no_owned, OBB_W);
   switch (S) {
     LAUNCH_SETS(1) LAUNCH_SETS(2) LAUNCH_SETS(3) LAUNCH_SETS(4)
     LAUNCH_SETS(5) LAUNCH_SETS(6) LAUNCH_SETS(7) LAUNCH_SETS(8)
@@ -171,4 +251,21 @@ extern "C" int multi_any_hit(const float* o, const float* dirs,
     LAUNCH_SETS(13) LAUNCH_SETS(14) LAUNCH_SETS(15) LAUNCH_SETS(16)
   }
   RETURN_LAST_ERROR;
+}
+
+#define OCCUPANCY_SETS(N)                                                   \
+  case N:                                                                   \
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(              \
+        blocks, multi_any_hit_kernel<N>, BLOCK, 0);
+
+// Resident blocks per SM of the kernel at S sets (cudaOccupancy...).
+extern "C" int multi_any_hit_occupancy(int S, int* blocks) {
+  switch (S) {
+    OCCUPANCY_SETS(1) OCCUPANCY_SETS(2) OCCUPANCY_SETS(3) OCCUPANCY_SETS(4)
+    OCCUPANCY_SETS(5) OCCUPANCY_SETS(6) OCCUPANCY_SETS(7) OCCUPANCY_SETS(8)
+    OCCUPANCY_SETS(9) OCCUPANCY_SETS(10) OCCUPANCY_SETS(11)
+    OCCUPANCY_SETS(12) OCCUPANCY_SETS(13) OCCUPANCY_SETS(14)
+    OCCUPANCY_SETS(15) OCCUPANCY_SETS(16)
+  }
+  return (int)cudaErrorInvalidValue;
 }

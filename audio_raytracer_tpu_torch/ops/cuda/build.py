@@ -123,10 +123,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # The C entry points of each library and their argument types.
 _SIGNATURES = {
     "closest_hit": {
-        "closest_hit": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P]},
+        "closest_hit": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P],
+        "closest_hit_occupancy": [_P],
+        "rcp_mismatches": [_P, _P]},
     "multi_any_hit": {
-        "multi_any_hit": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
-                          _P, _P]},
+        "multi_any_hit": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I,
+                          _P, _I, _I, _P, _P],
+        "multi_any_hit_occupancy": [_I, _P]},
     "multi_chord": {
         "multi_chord": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P]},
     "multi_chord_dens_bwd": {

@@ -10,7 +10,9 @@ kernel's values bit for bit (``--fmad=false``).
 
 ``sass_loop_counts`` reads the built library back with ``cuobjdump`` and
 counts the float32 instructions in each instance's loop body, which must
-equal the counted operations.
+equal the counted operations. ``loop_bodies`` does the same for any
+kernel of any library: per innermost loop, an opcode histogram and its
+classes (float32, integer and predicate logic, MUFU, LDS, branches).
 """
 
 from __future__ import annotations
@@ -125,6 +127,18 @@ run_calibrate.launches = 0
 # listing (a select may come out as the integer SEL on float bits).
 FP32_OPCODES = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSET", "FSEL",
                 "SEL")
+# The classes of a loop-body histogram; any other opcode (moves, global
+# loads and stores, conversions, FCHK) counts as "other".
+OPCODE_CLASSES = {
+    "fp32": FP32_OPCODES,
+    "int": ("ISETP", "IADD3", "IADD", "LOP3", "PLOP3", "IMAD", "IMNMX",
+            "IABS", "SHF", "LEA", "P2R", "R2P", "VIADD", "PRMT", "FLO",
+            "POPC"),
+    "mufu": ("MUFU",),
+    "lds": ("LDS",),
+    "branch": ("BRA", "BSSY", "BSYNC", "CALL", "RET", "JMP", "BREAK",
+               "WARPSYNC", "BAR", "VOTE", "VOTEU", "EXIT"),
+}
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)"
                    r"([^;]*);")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -132,17 +146,28 @@ _FUNC = re.compile(r"Function : (\S+)")
 _TEMPLATE = re.compile(r"calibrate_kernelILi(\d)ELi(\d+)E")
 
 
-def loop_body_counts(sass: str) -> dict:
-    """{(mix, ops_per_iter): (float32 instructions, opcode histogram)} of
-    the primitive loop of each calibrate_kernel instance in a ``cuobjdump
-    -sass`` listing: the innermost loop (the backward branch with the
-    shortest span) that holds float32 instructions; the tile-staging
-    loop holds none."""
+def opcode_classes(ops: dict) -> dict:
+    """{class: instructions} of an opcode histogram (OPCODE_CLASSES, then
+    "other")."""
+    out = {c: 0 for c in (*OPCODE_CLASSES, "other")}
+    for op, n in ops.items():
+        out[next((c for c, names in OPCODE_CLASSES.items() if op in names),
+                 "other")] += n
+    return out
+
+
+def loop_bodies(sass: str, pattern: str) -> dict:
+    """{function: [loop, ...]} for every function of a ``cuobjdump -sass``
+    listing whose (mangled) name matches the regular expression
+    ``pattern``. A loop is a backward branch and the instructions it
+    spans; only the innermost ones (spanning no other loop) that hold
+    float32 instructions are kept, in address order, each as dict(start,
+    end, ops: opcode histogram, classes: ``opcode_classes`` of it). A
+    loop unrolled by the compiler holds several iterations' bodies."""
     out = {}
     for chunk in re.split(r"(?=\s+Function : )", sass):
         m = _FUNC.search(chunk)
-        t = _TEMPLATE.search(m.group(1)) if m else None
-        if not t:
+        if not m or not re.search(pattern, m.group(1)):
             continue
         insns, labels, pending = [], {}, []
         for line in chunk.splitlines():
@@ -157,7 +182,7 @@ def loop_body_counts(sass: str) -> dict:
                     labels[name] = addr
                 pending = []
                 insns.append((addr, im.group(3), im.group(4)))
-        loops = []
+        spans = []
         for addr, op, args in insns:
             if not op.startswith("BRA"):
                 continue
@@ -167,23 +192,46 @@ def loop_body_counts(sass: str) -> dict:
             target = labels.get(tm.group(1)) if tm.group(1) \
                 else int(tm.group(2), 16)
             if target is not None and target < addr:
-                loops.append((addr - target, target, addr))
-        for _, lo, hi in sorted(loops):
+                spans.append((target, addr))
+        loops = []
+        for lo, hi in sorted(set(spans)):
+            if any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                   for a, b in spans):
+                continue
             ops = collections.Counter(op.split(".")[0] for a, op, _ in insns
                                       if lo <= a <= hi)
-            fp32 = sum(n for op, n in ops.items() if op in FP32_OPCODES)
-            if fp32:
-                out[MIXES[int(t.group(1))], int(t.group(2))] = (fp32,
-                                                                dict(ops))
-                break
+            classes = opcode_classes(ops)
+            if classes["fp32"]:
+                loops.append(dict(start=lo, end=hi, ops=dict(ops),
+                                  classes=classes))
+        out[m.group(1)] = loops
     return out
+
+
+def loop_body_counts(sass: str) -> dict:
+    """{(mix, ops_per_iter): (float32 instructions, opcode histogram)} of
+    the primitive loop of each calibrate_kernel instance in a ``cuobjdump
+    -sass`` listing: the innermost loop (the backward branch with the
+    shortest span) that holds float32 instructions; the tile-staging
+    loop holds none."""
+    out = {}
+    for name, loops in loop_bodies(sass, _TEMPLATE.pattern).items():
+        if loops:
+            t = _TEMPLATE.search(name)
+            body = min(loops, key=lambda lp: lp["end"] - lp["start"])
+            out[MIXES[int(t.group(1))], int(t.group(2))] = (
+                body["classes"]["fp32"], body["ops"])
+    return out
+
+
+def library_sass(name: str) -> str:
+    """``cuobjdump -sass`` of the built library of ``csrc/<name>.cu``."""
+    build.load(name)
+    return subprocess.run([build.find_cuda_tool("cuobjdump"), "-sass",
+                           build.lib_path(name)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
 
 
 def sass_loop_counts() -> dict:
     """``loop_body_counts`` of the built calibration library."""
-    lib = build.lib_path("calibrate")
-    build.load("calibrate")
-    sass = subprocess.run([build.find_cuda_tool("cuobjdump"), "-sass", lib],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    return loop_body_counts(sass)
+    return loop_body_counts(library_sass("calibrate"))

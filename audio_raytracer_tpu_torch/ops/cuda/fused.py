@@ -25,6 +25,7 @@ from audio_raytracer_tpu_torch.ops.cuda import build
 from audio_raytracer_tpu_torch.ops.cuda.kernels import (
     A_DENS,
     A_MISS,
+    AABB_W,
     A_TGT,
     O_DENS,
     O_M,
@@ -33,6 +34,7 @@ from audio_raytracer_tpu_torch.ops.cuda.kernels import (
     S_DENS,
     S_R2,
     S_TGT,
+    SPH_W,
     Fields,
     box_inv_dirs,
     box_terms,
@@ -40,6 +42,7 @@ from audio_raytracer_tpu_torch.ops.cuda.kernels import (
     ids,
     mat_rotate,
     on_cpu,
+    pad_to_tiles,
     ray_cols,
     safe_inv,
     skips_arg,
@@ -47,6 +50,7 @@ from audio_raytracer_tpu_torch.ops.cuda.kernels import (
     slab_hit,
     stream_of,
     table_args,
+    table_ptr,
 )
 
 Tensor = torch.Tensor
@@ -129,6 +133,49 @@ def multi_any_hit_plain(fields: Fields, o: Tensor, dirs, limits: Tensor,
     return out
 
 
+def active_rows(tab: Tensor) -> Tensor:
+    """[n] bool: the rows of a type table that can hit (sphere r2 >= 0,
+    box miss = 0; prepare_fields encodes an inactive primitive as r2 =
+    -1e30 or miss = +inf)."""
+    if tab.shape[1] == SPH_W:
+        return tab[:, S_R2] >= 0.0
+    return tab[:, A_MISS if tab.shape[1] == AABB_W else O_MISS] == 0.0
+
+
+def occlusion_tables(fields: Fields, skips):
+    """B2's tables for a launch with these skip targets: per type (spheres,
+    AABBs, OBBs) a table whose active rows owned by none of ``skips`` come
+    first, padded to whole tiles, then its active rows owned by one of
+    them, padded likewise; inactive rows are left out. Returns ((table,
+    free rows, owned rows), ...). Occlusion is an OR over the primitives,
+    so neither the order nor the ranks matter."""
+    key = tuple(sorted(set(skips)))
+
+    def make():
+        out = []
+        for tab, col in ((fields.sph, S_TGT), (fields.aabb, A_TGT),
+                         (fields.obb, O_TGT)):
+            act = active_rows(tab)
+            # NO_SKIP matches no row: unowned rows carry -1.
+            owned = torch.isin(ids(tab, col), torch.tensor(
+                key, dtype=torch.int32, device=tab.device))
+            free, mine = tab[act & ~owned], tab[act & owned]
+            out.append((torch.cat([pad_to_tiles(free), pad_to_tiles(mine)]),
+                        free.shape[0], mine.shape[0]))
+        return tuple(out)
+
+    return fields.cached(("occlusion", key), make)
+
+
+def occlusion_args(fields: Fields, skips, device) -> list:
+    """The tables' arguments of one B2 launch: per type (pointer, free
+    rows, owned rows), each table checked by ``table_ptr``."""
+    args = []
+    for tab, n_free, n_owned in occlusion_tables(fields, skips):
+        args += [table_ptr(tab, device), n_free, n_owned]
+    return args
+
+
 def run_multi_any_hit(fields: Fields, o: Tensor, dirs, limits: Tensor,
                       skips, init_occ: Tensor) -> Tensor:
     """B2: occlusion of S ray sets sharing the origins o [R, 3].
@@ -156,8 +203,8 @@ def run_multi_any_hit(fields: Fields, o: Tensor, dirs, limits: Tensor,
         err = lib.multi_any_hit(o.data_ptr(), stacked.data_ptr(),
                                 lim.data_ptr(), init.data_ptr(), R,
                                 g.stop - g.start, skips_ptr,
-                                *table_args(fields, dev), occ.data_ptr(),
-                                stream_of(dev))
+                                *occlusion_args(fields, skips[g], dev),
+                                occ.data_ptr(), stream_of(dev))
         build.check("multi_any_hit", err)
         if R:
             run_multi_any_hit.launches += 1

@@ -51,11 +51,14 @@ OPS = {"sphere": 19, "aabb": 27, "obb": 69}
 
 @dataclasses.dataclass(frozen=True)
 class Fields:
-    """Per-type primitive tables: sph [ns, 8], aabb [na, 12], obb [no, 20]."""
+    """Per-type primitive tables: sph [ns, 8], aabb [na, 12], obb [no, 20].
+    ``derived`` caches tables built from them for one kernel (``cached``)."""
 
     sph: Tensor
     aabb: Tensor
     obb: Tensor
+    derived: dict = dataclasses.field(default_factory=dict, compare=False,
+                                      repr=False)
 
     @property
     def counts(self) -> tuple[int, int, int]:
@@ -67,6 +70,52 @@ class Fields:
 
     def nbytes(self) -> int:
         return sum(t.numel() * 4 for t in (self.sph, self.aabb, self.obb))
+
+    def cached(self, key, make):
+        """``make()``, built once per key for these tables."""
+        if key not in self.derived:
+            self.derived[key] = make()
+        return self.derived[key]
+
+
+# ---------------------------------------------------------------------------
+# Tables padded to whole tiles (B1, B2)
+# ---------------------------------------------------------------------------
+
+# Rows per shared-memory tile of B1 and B2 (csrc/fields.cuh RING_TILE). They
+# stage whole tiles with one bulk copy each, so their tables come padded to
+# a multiple of TILE rows with rows that never hit.
+TILE = 128
+
+
+def miss_row(width: int, device) -> Tensor:
+    """A [width] row of a type table that no ray hits: a sphere of r2 =
+    -1e30, a box with miss = +inf (the encodings of an inactive
+    primitive), owned by no target (-1), at the origin, zero density."""
+    row = torch.zeros((width,), device=device)
+    miss = {SPH_W: (S_R2, -1e30), AABB_W: (A_MISS, INF),
+            OBB_W: (O_MISS, INF)}[width]
+    tgt = {SPH_W: S_TGT, AABB_W: A_TGT, OBB_W: O_TGT}[width]
+    row[miss[0]] = miss[1]
+    row[tgt:tgt + 1] = torch.tensor([-1], dtype=torch.int32,
+                                    device=device).view(torch.float32)
+    return row
+
+
+def pad_to_tiles(tab: Tensor) -> Tensor:
+    """tab [n, W] followed by miss rows up to a multiple of TILE rows."""
+    n, width = tab.shape
+    pad = -n % TILE
+    if not pad:
+        return tab.contiguous()
+    return torch.cat([tab, miss_row(width, tab.device).expand(pad, width)])
+
+
+def closest_tables(fields: Fields):
+    """B1's tables: each type's table padded to whole tiles. The ranks the
+    kernel reports are the scan indices of ``fields``."""
+    return fields.cached("closest", lambda: tuple(
+        pad_to_tiles(t) for t in (fields.sph, fields.aabb, fields.obb)))
 
 
 # ---------------------------------------------------------------------------
@@ -209,15 +258,20 @@ def check_operands(device, *tensors, dtypes=(torch.float32,)):
             raise ValueError("operands must be contiguous")
 
 
+def table_ptr(tab: Tensor, device) -> int:
+    """The pointer of a type table, checked for the kernels' 16-byte row
+    loads and bulk copies."""
+    check_operands(device, tab)
+    if tab.data_ptr() % 16:
+        raise ValueError("primitive tables must be 16-byte aligned")
+    return tab.data_ptr()
+
+
 def table_args(fields: Fields, device) -> list:
-    """(pointer, count) pairs of the three tables, checked for the
-    kernels' 16-byte row loads."""
+    """(pointer, count) pairs of the three tables."""
     args = []
     for tab in (fields.sph, fields.aabb, fields.obb):
-        check_operands(device, tab)
-        if tab.data_ptr() % 16:
-            raise ValueError("primitive tables must be 16-byte aligned")
-        args += [tab.data_ptr(), tab.shape[0]]
+        args += [table_ptr(tab, device), tab.shape[0]]
     return args
 
 
@@ -247,10 +301,13 @@ def run_closest_hit(fields: Fields, o: Tensor, d: Tensor,
     R = o.shape[0]
     t = torch.empty((R,), device=dev)
     rank = torch.empty((R,), dtype=torch.int32, device=dev)
+    args = []  # the padded tables with the real counts, for the ranks
+    for tab, n in zip(closest_tables(fields), fields.counts):
+        args += [table_ptr(tab, dev), n]
     err = lib.closest_hit(o.data_ptr(), d.data_ptr(),
                           None if alive is None else alive.data_ptr(), R,
-                          *table_args(fields, dev), t.data_ptr(),
-                          rank.data_ptr(), stream_of(dev))
+                          *args, t.data_ptr(), rank.data_ptr(),
+                          stream_of(dev))
     build.check("closest_hit", err)
     if R:
         run_closest_hit.launches += 1

@@ -1,6 +1,7 @@
 """Speed-of-light roofline of the port on one NVIDIA card.
 
-The counterpart of the JAX package's ``tools/roofline.py``, in four parts:
+The counterpart of the JAX package's ``tools/roofline.py``, in four parts,
+and a fifth of its own:
 
 1. ``ceiling()``: B9 (``ops/cuda/calibrate.py``) runs counted chains of
    the production op mix, "fma4" and "occl", at 88 and 176 float32
@@ -23,6 +24,11 @@ The counterpart of the JAX package's ``tools/roofline.py``, in four parts:
 4. ``floors()``: counted operations x participation / ceiling for the
    forward at both lives and for the materials training step, beside
    measured medians.
+5. The attribution of B1 and B2 (``chip_smoke.py`` phases 2a and 3 call
+   it): ``loop_histograms()`` (opcode classes of their innermost loops),
+   ``occupancy()``, ``type_ablation()`` (each type's table alone against
+   its bound), ``resolution_shares()`` (how early B2's walk could stop per
+   warp) and ``sphere_branch_shares()`` (how often B1's square root runs).
 
 Run on the card: ``python -m audio_raytracer_tpu_torch.tools.roofline``.
 """
@@ -93,6 +99,14 @@ def pair_ops(fields: K.Fields, rays: int, S: int, table) -> int:
 def closest_ops(fields: K.Fields, rays: int) -> int:
     """B1's float operations for ``rays`` live rays."""
     return pair_ops(fields, rays, 0, {k: (v, 0) for k, v in K.OPS.items()})
+
+
+def occl_ops(fields: K.Fields, live: int, open_pairs: int) -> int:
+    """B2's float operations: the shared terms for every live ray, the
+    per-set tests for the (ray, set) pairs not resolved on entry."""
+    return sum(n * (live * a + open_pairs * b) for n, (a, b) in zip(
+        fields.counts, (F.OCC_OPS["sphere"], F.OCC_OPS["aabb"],
+                        F.OCC_OPS["obb"])))
 
 
 def any_hit_work(fields: K.Fields, o, d, limit, skip) -> tuple:
@@ -287,6 +301,149 @@ def floors(ceil, sweeps, fields: K.Fields, rays=R, measured=None,
             f"{out[cell]:.2f} ms at {ceil / 1e12:.3f} T ops/s"
             + (f"; measured median {got:.2f} ms ({out[cell] / got:.1%} "
                f"of it)" if got else ""))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 5. Attribution of B1 and B2
+# ---------------------------------------------------------------------------
+
+TYPES = ("sphere", "aabb", "obb")
+
+
+def loop_histograms(log=print) -> dict:
+    """{kernel: [opcode classes of each innermost loop]} of B1
+    (``closest_hit_kernel``) and B2 at S = 5 (``multi_any_hit_kernel<5>``)
+    in the built libraries: static counts, so a loop holds its rare paths
+    (a slow-path reciprocal, the sphere hit) beside its common one, and
+    each unrolled iteration."""
+    out = {}
+    for name, pattern in (("closest_hit", r"closest_hit_kernel"),
+                          ("multi_any_hit", r"multi_any_hit_kernelILi5E")):
+        loops = C.loop_bodies(C.library_sass(name), pattern)
+        out[name] = [lp["classes"] for lps in loops.values() for lp in lps]
+        for i, classes in enumerate(out[name]):
+            log(f"  {name} loop {i}: {classes}")
+    return out
+
+
+def occupancy(sets=(5,)) -> dict:
+    """Resident blocks per SM of B1 and of B2 at each S in ``sets``."""
+    import ctypes
+
+    from audio_raytracer_tpu_torch.ops.cuda import build
+
+    n = ctypes.c_int(0)
+    build.check("occupancy", build.load("closest_hit")
+                .closest_hit_occupancy(ctypes.byref(n)))
+    out = {"B1": n.value}
+    for S in sets:
+        build.check("occupancy", build.load("multi_any_hit")
+                    .multi_any_hit_occupancy(S, ctypes.byref(n)))
+        out[f"B2 S={S}"] = n.value
+    return out
+
+
+def one_type(fields: K.Fields, kind: str) -> K.Fields:
+    """``fields`` with every type but ``kind`` emptied."""
+    tabs = [fields.sph, fields.aabb, fields.obb]
+    return K.Fields(*(t if k == kind else t[:0]
+                      for k, t in zip(TYPES, tabs)))
+
+
+def type_ablation(fields: K.Fields, b1_args, b2_args, ceil, reps=5,
+                  log=print) -> dict:
+    """B1 (o, d, alive) and B2 (o, dirs, limits, skips, init) on each
+    type's table alone: {type: dict(b1_ms, b1_bound_ms, b2_ms,
+    b2_bound_ms)}, the bounds against the ceiling ``ceil``."""
+    o, d, alive = b1_args
+    o2, dirs, limits, skips, init = b2_args
+    live1 = int(alive.sum())
+    live2, open2 = int((~init.all(dim=1)).sum()), int((~init).sum())
+    out = {}
+    for kind in TYPES:
+        f = one_type(fields, kind)
+        rec = dict(
+            b1_ms=cuda_ms(lambda: K.run_closest_hit(f, o, d, alive), reps),
+            b1_bound_ms=closest_ops(f, live1) / ceil * 1e3,
+            b2_ms=cuda_ms(lambda: F.run_multi_any_hit(f, o2, dirs, limits,
+                                                      skips, init), reps),
+            b2_bound_ms=occl_ops(f, live2, open2) / ceil * 1e3)
+        out[kind] = rec
+        log(f"  {kind} alone: B1 {rec['b1_ms']:.4f} ms (bound "
+            f"{rec['b1_bound_ms']:.4f}), B2 {rec['b2_ms']:.4f} ms (bound "
+            f"{rec['b2_bound_ms']:.4f})")
+    return out
+
+
+def _occluders(fields: K.Fields, o, d, lim) -> torch.Tensor:
+    """[c, P] bool in scan order: primitive p occludes the unit ray (o, d)
+    within lim [c, 1] by B2's tests (skip targets aside)."""
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    sph = fields.sph
+    ocx, ocy, ocz = ox - sph[:, 0], oy - sph[:, 1], oz - sph[:, 2]
+    cc = (ocx * ocx + ocy * ocy + ocz * ocz) - sph[:, K.S_R2]
+    c_pos = cc >= 0.0
+    h = ocx * dx + ocy * dy + ocz * dz
+    hl = h + lim
+    q = lim * (hl + h) + cc
+    entering = c_pos & (h <= 0.0) & ((hl > 0.0) | (q < 0.0))
+    inside = ~c_pos & (hl > 0.0) & (q > 0.0)
+    grids = [(h * h >= cc) & (entering | inside)]
+    for kind, tab, miss in (("aabb", fields.aabb, K.A_MISS),
+                            ("obb", fields.obb, K.O_MISS)):
+        terms = K.box_terms(fields, kind, ox, oy, oz)
+        inv = K.box_inv_dirs(fields, kind, dx, dy, dz)
+        grids.append(K.slab_hit(*K.slab(*terms, *inv)) + tab[:, miss] < lim)
+    return torch.cat(grids, dim=-1)
+
+
+def resolution_shares(fields: K.Fields, o, dirs, limits, init,
+                      lanes=(32, 64), log=print) -> dict:
+    """How early B2's walk could stop per group of ``lanes`` consecutive
+    rays: {lanes: (share of groups whose every (ray, set) pair is resolved
+    by mid-walk, by three quarters, by the end)}; "pairs" the share of open
+    pairs that meet an occluder at all. A pair resolves at its first
+    occluder in scan order, or on entry (init)."""
+    R, S = limits.shape
+    P = fields.total
+    first = torch.full((R, S), P + 1, dtype=torch.int64, device=o.device)
+    for c in ray_chunks(R, P):
+        for s in range(S):
+            g = _occluders(fields, o[c], dirs[s][c], limits[c, s:s + 1])
+            idx = g.to(torch.uint8).argmax(dim=-1) + 1
+            first[c, s] = torch.where(g.any(dim=-1), idx, P + 1)
+    out = dict(pairs=float((first[~init] <= P).float().mean()))
+    first = first.masked_fill(init, 0)
+    for n in lanes:
+        done = first[:R // n * n].reshape(-1, n * S).amax(dim=-1)
+        out[n] = tuple(float((done <= frac * P).float().mean())
+                       for frac in (0.5, 0.75, 1.0))
+        log(f"  B2 groups of {n} rays resolved by mid-walk, 3/4, the end: "
+            f"{out[n]}")
+    log(f"  B2 open (ray, set) pairs that meet an occluder: {out['pairs']}")
+    return out
+
+
+def sphere_branch_shares(fields: K.Fields, o, d, lanes=(1, 32, 64),
+                         log=print) -> dict:
+    """{lanes: share of (group of ``lanes`` consecutive rays, sphere)
+    pairs in which some ray meets the sphere (disc >= 0)}: how often B1's
+    square-root branch runs."""
+    R, sph = o.shape[0], fields.sph
+    hit = []
+    for c in ray_chunks(R, fields.total):
+        ox, oy, oz = K.ray_cols(o, c)
+        dx, dy, dz = K.ray_cols(d, c)
+        ocx, ocy, ocz = ox - sph[:, 0], oy - sph[:, 1], oz - sph[:, 2]
+        b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
+        cc = (ocx * ocx + ocy * ocy + ocz * ocz) - sph[:, K.S_R2]
+        hit.append(b * b - 4.0 * (dx * dx + dy * dy + dz * dz) * cc >= 0.0)
+    hit = torch.cat(hit)
+    out = {n: float(hit[:R // n * n].reshape(-1, n, hit.shape[1]).any(dim=1)
+                    .float().mean()) for n in lanes}
+    log(f"  B1 sphere branch taken per group of rays: {out}")
     return out
 
 

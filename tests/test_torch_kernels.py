@@ -219,6 +219,113 @@ class TestFusedOcclusion:
         assert occ_unowned.sum() <= occ_none.sum()
 
 
+class TestPaddedTables:
+    """The tables B1 and B2 walk: each type's rows padded to whole tiles
+    with rows that never hit; for B2 split by the launch's skip targets,
+    with inactive rows left out."""
+
+    @pytest.mark.parametrize("skips", [(NO_SKIP,), (NO_SKIP, 0, 1), (1,),
+                                       (-1, 0)])
+    def test_owned_rows_are_exactly_the_skips_rows(self, jscene, skips):
+        scene = carry(jscene)
+        fields = prepare_fields(scene)
+        kinds = (scene.spheres, scene.aabbs, scene.obbs)
+        cols = (K.S_TGT, K.A_TGT, K.O_TGT)
+        for (tab, n_free, n_owned), kind, col in zip(
+                F.occlusion_tables(fields, skips), kinds, cols):
+            ids = K.ids(tab, col).tolist()
+            free_pad = -n_free % K.TILE
+            free = ids[:n_free]
+            owned = ids[n_free + free_pad:n_free + free_pad + n_owned]
+            want = kind.target_id[kind.active].tolist()
+            assert sorted(free + owned) == sorted(want)
+            assert all(i in skips for i in owned)
+            assert not any(i in skips for i in free)
+            # NO_SKIP never claims an unowned row (target id -1).
+            if skips == (NO_SKIP,):
+                assert n_owned == 0 and n_free == len(want)
+            assert tab.shape[0] % K.TILE == 0
+            assert tab.shape[0] == n_free + free_pad + n_owned \
+                + (-n_owned % K.TILE)
+
+    def test_padding_rows_never_hit(self, jscene):
+        for width in (K.SPH_W, K.AABB_W, K.OBB_W):
+            row = K.miss_row(width, "cpu")
+            tab = K.pad_to_tiles(row[None])
+            assert tab.shape == (K.TILE, width)
+            assert not F.active_rows(tab).any()
+        fields = prepare_fields(carry(jscene))
+        assert not F.active_rows(K.pad_to_tiles(fields.aabb)[13:]).any()
+        assert F.active_rows(fields.aabb).all()
+
+    def test_closest_ranks_are_the_original_scan_indices(self, backends,
+                                                         rays):
+        # B1 walks the padded tables and reports type offset + row with
+        # the real counts: the plain version on the padded tables, with
+        # its ranks mapped that way, equals it on the original tables.
+        o, d = rays
+        fields = backends[0].fields
+        padded = K.Fields(*K.closest_tables(fields))
+        t_ref, r_ref = K.closest_hit_plain(fields, t(o), t(d))
+        t_pad, r_pad = K.closest_hit_plain(padded, t(o), t(d))
+        assert torch.equal(t_ref, t_pad)
+        bounds = np.cumsum((0,) + padded.counts)
+        base = np.cumsum((0,) + fields.counts)
+        r = r_pad.numpy().astype(np.int64)
+        kind = np.searchsorted(bounds, r, side="right") - 1
+        hit = r != K.INT_MAX
+        mapped = np.where(hit, base[np.minimum(kind, 2)]
+                          + r - bounds[np.minimum(kind, 2)], K.INT_MAX)
+        np.testing.assert_array_equal(mapped, r_ref.numpy())
+        assert hit.any()
+
+    @pytest.mark.parametrize("init_every", [0, 3])
+    def test_plain_on_occlusion_tables_matches_pallas_and_dense(
+            self, jscene, backends, rays, init_every):
+        # B2's decisions on the split tables equal the JAX tiers exactly.
+        o, d = rays
+        kb, _, pb, jd = backends
+        off, dirs, limits = bounce_sets(jscene.target_positions, o, d)
+        R, S = limits.shape
+        init = np.zeros((R, S), bool)
+        if init_every:
+            init[::init_every, 0] = True
+        skips = (NO_SKIP,) + tuple(range(S - 1))
+        jskips = (J_NO_SKIP,) + tuple(range(S - 1))
+        split = K.Fields(*(x[0] for x in F.occlusion_tables(kb.fields,
+                                                            skips)))
+        occ = F.multi_any_hit_plain(split, t(off), [t(x) for x in dirs],
+                                    t(limits), skips,
+                                    t(init, torch.bool)).numpy()
+        jdirs = [jnp.asarray(x) for x in dirs]
+        for ref in (pb.multi_occluded(off, jdirs, limits, jskips, init),
+                    jd.multi_occluded(off, jdirs, limits, jskips, init)):
+            np.testing.assert_array_equal(occ, np.asarray(ref))
+        assert occ.any() and not occ.all()
+
+    def test_plain_on_occlusion_tables_without_inactive_rows(self, jscene,
+                                                             rays):
+        # Inactive AABBs leave B2's tables; the decisions stay those of
+        # the original tables.
+        import dataclasses
+        scene = carry(jscene)
+        act = torch.arange(13) % 3 != 0
+        scene = scene.replace(aabbs=dataclasses.replace(scene.aabbs,
+                                                        active=act))
+        fields = prepare_fields(scene)
+        o, d = rays
+        off, dirs, limits = bounce_sets(jscene.target_positions, o, d)
+        skips = (NO_SKIP,) + tuple(range(limits.shape[1] - 1))
+        tabs = F.occlusion_tables(fields, skips)
+        assert tabs[1][1] + tabs[1][2] == int(act.sum())
+        init = torch.zeros(limits.shape, dtype=torch.bool)
+        args = (t(off), [t(x) for x in dirs], t(limits), skips, init)
+        np.testing.assert_array_equal(
+            F.multi_any_hit_plain(K.Fields(*(x[0] for x in tabs)),
+                                  *args).numpy(),
+            F.multi_any_hit_plain(fields, *args).numpy())
+
+
 class TestFusedChords:
     def test_matches_pallas_and_dense(self, jscene, backends, rays):
         o, d = rays
@@ -345,6 +452,8 @@ class TestWrappers:
 
         monkeypatch.setattr(build, "load", lambda name: Lib())
         monkeypatch.setattr(F, "table_args", lambda fields, dev: [0] * 6)
+        monkeypatch.setattr(F, "occlusion_args",
+                            lambda fields, skips, dev: [0] * 9)
         monkeypatch.setattr(F, "stream_of", lambda dev: 0)
         fields = backends[0].fields
         R, S = 5, 20

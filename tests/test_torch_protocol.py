@@ -410,12 +410,10 @@ def test_calibrate_plain_matches_jax(jax_roofline, monkeypatch, mix):
     assert torch.isfinite(out).all()
 
 
-def test_sass_loop_body_counts():
-    # cuobjdump's listing of one instance: the innermost backward branch
-    # that holds float32 instructions bounds the loop body (the staging
-    # loop before it holds none); predicated and labelled forms both
-    # parse.
-    sass = """
+# cuobjdump listings. B9's: the innermost backward branch that holds
+# float32 instructions bounds the loop body (the staging loop before it
+# holds none); predicated and labelled forms both parse.
+SASS_B9 = """
         Function : _Z16calibrate_kernelILi1ELi88EEvPKfiS1_i9CalConstsPf
         /*0000*/                   MOV R1, c[0x0][0x28] ;
         /*0008*/                   LDG.E.128 R4, desc[UR8][R4.64] ;
@@ -434,12 +432,78 @@ def test_sass_loop_body_counts():
         /*00a0*/               @P1 BRA `(.L_x_1) ;
         /*00b0*/                   FADD R9, R2, R3 ;
         /*00c0*/                   BRA 0xc0 ;
-    """
-    counts = C.loop_body_counts(sass)
-    assert list(counts) == [("occl", 88)]
-    fp32, hist = counts["occl", 88]
-    assert fp32 == 6
-    assert hist["LDS"] == 1 and hist["IADD3"] == 1 and hist["BRA"] == 1
+"""
+
+# B1's and B2's: a barrier wait loop (no float32), then per type a row
+# loop whose forward branch (the sphere hit) stays inside it; B2 at S = 4
+# and S = 5, of which a pattern picks one.
+SASS_B1_B2 = """
+        Function : _Z18closest_hit_kernelPKfS0_PKhi6StreamiiPfPi
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        .L_x_3:
+        /*0010*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], R2 ;
+        /*0020*/              @!P0 BRA `(.L_x_3) ;
+        .L_x_4:
+        /*0030*/                   LDS.128 R4, [R0] ;
+        /*0040*/                   FADD R8, -R4, R20 ;
+        /*0050*/                   FMUL R9, R8, R8 ;
+        /*0060*/                   FSETP.GE.AND P1, PT, R9, RZ, PT ;
+        /*0070*/                   BSSY B0, 0xa0 ;
+        /*0080*/              @!P1 BRA 0x90 ;
+        /*0090*/                   MUFU.RSQ R10, R9 ;
+        /*00a0*/                   BSYNC B0 ;
+        /*00b0*/                   IADD3 R0, R0, 0x20, RZ ;
+        /*00c0*/                   ISETP.NE.AND P2, PT, R0, R3, PT ;
+        /*00d0*/               @P2 BRA `(.L_x_4) ;
+        .L_x_5:
+        /*00e0*/                   LDS.128 R4, [R0] ;
+        /*00f0*/                   FMNMX R8, R4, R5, PT ;
+        /*0100*/                   FSEL R9, R8, +INF , P0 ;
+        /*0110*/                   LOP3.LUT R2, R2, 0x1, RZ, 0xfc, !PT ;
+        /*0120*/               @P2 BRA `(.L_x_5) ;
+        /*0130*/                   EXIT ;
+        Function : _Z20multi_any_hit_kernelILi4EEvPKfS1_S1_PKhi5Skips6StreamPh
+        .L_x_6:
+        /*0000*/                   FADD R8, -R4, R20 ;
+        /*0010*/               @P2 BRA `(.L_x_6) ;
+        Function : _Z20multi_any_hit_kernelILi5EEvPKfS1_S1_PKhi5Skips6StreamPh
+        .L_x_7:
+        /*0000*/                   LDS.64 R4, [R0] ;
+        /*0010*/                   FSETP.GT.AND P0, PT, R4, RZ, PT ;
+        /*0020*/                   FSETP.LT.OR P0, PT, R5, RZ, P0 ;
+        /*0030*/                   PLOP3.LUT P0, PT, P0, P1, PT, 0x80, 0x0 ;
+        /*0040*/               @P0 LOP3.LUT R2, R2, 0x10, RZ, 0xfc, !PT ;
+        /*0050*/               @P2 BRA `(.L_x_7) ;
+"""
+
+
+@pytest.mark.parametrize("kernel", ["calibrate", "closest_hit",
+                                    "multi_any_hit"])
+def test_sass_loop_body_counts(kernel):
+    if kernel == "calibrate":
+        counts = C.loop_body_counts(SASS_B9)
+        assert list(counts) == [("occl", 88)]
+        fp32, hist = counts["occl", 88]
+        assert fp32 == 6
+        assert hist["LDS"] == 1 and hist["IADD3"] == 1 and hist["BRA"] == 1
+        return
+    pattern = {"closest_hit": r"closest_hit_kernel",
+               "multi_any_hit": r"multi_any_hit_kernelILi5E"}[kernel]
+    bodies = C.loop_bodies(SASS_B1_B2, pattern)
+    assert len(bodies) == 1
+    (name, loops), = bodies.items()
+    assert kernel in name
+    got = [(lp["start"], lp["end"], lp["classes"]) for lp in loops]
+    if kernel == "closest_hit":
+        # The wait loop holds no float32 instruction and is left out.
+        assert got == [
+            (0x30, 0xd0, dict(fp32=3, int=2, mufu=1, lds=1, branch=4,
+                              other=0)),
+            (0xe0, 0x120, dict(fp32=2, int=1, mufu=0, lds=1, branch=1,
+                               other=0))]
+    else:
+        assert got == [(0x0, 0x50, dict(fp32=2, int=2, mufu=0, lds=1,
+                                         branch=1, other=0))]
 
 
 def test_any_hit_work_counts_pairs_up_to_the_first_occluder(backends,
