@@ -133,15 +133,18 @@ _SIGNATURES = {
     "multi_chord": {
         "multi_chord": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P]},
     "multi_chord_dens_bwd": {
-        "multi_chord_dens_bwd": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P,
-                                 _I, _P, _P, _P, _P]},
+        "multi_chord_dens_bwd": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
+                                 _P, _P, _P, _P],
+        "multi_chord_dens_bwd_occupancy": [_I, _P],
+        "sqrt_mismatches": [_P, _P, _P]},
     "multi_chord_bwd": {
         "multi_chord_bwd": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
                             _P, _P, _P],
         "chord_loss_bwd": [_P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P,
                            _P, _P]},
     "any_hit": {
-        "any_hit": [_P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P]},
+        "any_hit": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P],
+        "any_hit_occupancy": [_P]},
     "calibrate": {"calibrate": [_P, _I, _P, _I, _I, _I, _P, _P]},
 }
 

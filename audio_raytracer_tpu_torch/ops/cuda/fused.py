@@ -25,7 +25,6 @@ from audio_raytracer_tpu_torch.ops.cuda import build
 from audio_raytracer_tpu_torch.ops.cuda.kernels import (
     A_DENS,
     A_MISS,
-    AABB_W,
     A_TGT,
     O_DENS,
     O_M,
@@ -34,15 +33,14 @@ from audio_raytracer_tpu_torch.ops.cuda.kernels import (
     S_DENS,
     S_R2,
     S_TGT,
-    SPH_W,
     Fields,
     box_inv_dirs,
     box_terms,
     check_operands,
     ids,
     mat_rotate,
+    occlusion_tables,
     on_cpu,
-    pad_to_tiles,
     ray_cols,
     safe_inv,
     skips_arg,
@@ -131,40 +129,6 @@ def multi_any_hit_plain(fields: Fields, o: Tensor, dirs, limits: Tensor,
                 t = slab_hit(*slab(*terms, *inv)) + tab[:, miss]
                 occ[:, s] |= ((t < lims[s]) & (tgt != skips[s])).any(dim=-1)
     return out
-
-
-def active_rows(tab: Tensor) -> Tensor:
-    """[n] bool: the rows of a type table that can hit (sphere r2 >= 0,
-    box miss = 0; prepare_fields encodes an inactive primitive as r2 =
-    -1e30 or miss = +inf)."""
-    if tab.shape[1] == SPH_W:
-        return tab[:, S_R2] >= 0.0
-    return tab[:, A_MISS if tab.shape[1] == AABB_W else O_MISS] == 0.0
-
-
-def occlusion_tables(fields: Fields, skips):
-    """B2's tables for a launch with these skip targets: per type (spheres,
-    AABBs, OBBs) a table whose active rows owned by none of ``skips`` come
-    first, padded to whole tiles, then its active rows owned by one of
-    them, padded likewise; inactive rows are left out. Returns ((table,
-    free rows, owned rows), ...). Occlusion is an OR over the primitives,
-    so neither the order nor the ranks matter."""
-    key = tuple(sorted(set(skips)))
-
-    def make():
-        out = []
-        for tab, col in ((fields.sph, S_TGT), (fields.aabb, A_TGT),
-                         (fields.obb, O_TGT)):
-            act = active_rows(tab)
-            # NO_SKIP matches no row: unowned rows carry -1.
-            owned = torch.isin(ids(tab, col), torch.tensor(
-                key, dtype=torch.int32, device=tab.device))
-            free, mine = tab[act & ~owned], tab[act & owned]
-            out.append((torch.cat([pad_to_tiles(free), pad_to_tiles(mine)]),
-                        free.shape[0], mine.shape[0]))
-        return tuple(out)
-
-    return fields.cached(("occlusion", key), make)
 
 
 def occlusion_args(fields: Fields, skips, device) -> list:
@@ -494,11 +458,44 @@ def _dens_outs(fields: Fields, device):
     return tuple(torch.zeros((n,), device=device) for n in fields.counts)
 
 
-def _launch_dens_bwd(lib, fields, o, stacked, g, R, skips_ptr, outs, dev):
+# B4 stages its ray records in tiles (csrc/multi_chord_dens_bwd.cu
+# RAY_TILE_PAD): the record list is padded to a multiple of this many.
+RAY_TILE_PAD = 128
+
+
+def dens_records(o: Tensor, stacked: Tensor, g: Tensor):
+    """B4's ray records for o [R, 3], the directions stacked [S, R, 3] and
+    the cotangents g [R, S]: two [Rp, 1 + S, 4] float32 tensors, Rp = R
+    padded to a multiple of RAY_TILE_PAD. Record r is a head (o[r], live)
+    and per set s (d[s, r], g[r, s]) in the first, (safe_inv(d[s, r]),
+    g[r, s]) in the second; live is 1.0 where a cotangent of the ray is
+    nonzero, else 0.0. Padding records are zero (not live)."""
+    R, S = o.shape[0], stacked.shape[0]
+    Rp = -(-R // RAY_TILE_PAD) * RAY_TILE_PAD
+    d = stacked.transpose(0, 1)
+    live = (g != 0).any(dim=1).to(torch.float32)
+    out = []
+    for x in (d, safe_inv(d)):
+        rec = torch.zeros((Rp, 1 + S, 4), device=o.device)
+        rec[:R, 0, :3] = o
+        rec[:R, 0, 3] = live
+        rec[:R, 1:, :3] = x
+        rec[:R, 1:, 3] = g
+        out.append(rec)
+    return tuple(out)
+
+
+def launch_dens_bwd(lib, fields: Fields, o, stacked, g, skips, outs):
+    """One launch of B4's kernel for the sets of ``stacked`` [S, R, 3]
+    (S <= MAX_SETS) with cotangents g [R, S] and skip targets ``skips``,
+    adding into the density gradients ``outs``. B5 and B8 launch it too."""
+    dev = o.device
+    rec_d, rec_inv = dens_records(o, stacked, g)
+    keep, skips_ptr = skips_arg(skips)
     err = lib.multi_chord_dens_bwd(
-        o.data_ptr(), stacked.data_ptr(), g.data_ptr(), R, stacked.shape[0],
-        skips_ptr, *table_args(fields, dev), *(x.data_ptr() for x in outs),
-        stream_of(dev))
+        rec_d.data_ptr(), rec_inv.data_ptr(), rec_d.shape[0],
+        stacked.shape[0], skips_ptr, *table_args(fields, dev),
+        *(x.data_ptr() for x in outs), stream_of(dev))
     build.check("multi_chord_dens_bwd", err)
 
 
@@ -526,9 +523,7 @@ def run_multi_chord_dens_bwd(fields: Fields, o: Tensor, dirs, skips,
     dev, R = o.device, o.shape[0]
     outs = _dens_outs(fields, dev)
     for g, stacked, cols in _bwd_groups(o, dirs, gbar):
-        keep, skips_ptr = skips_arg(skips[g])
-        _launch_dens_bwd(lib, fields, o, stacked, cols, R, skips_ptr, outs,
-                         dev)
+        launch_dens_bwd(lib, fields, o, stacked, cols, skips[g], outs)
         if R:
             run_multi_chord_dens_bwd.launches += 1
     return outs
@@ -564,8 +559,7 @@ def run_multi_chord_bwd(fields: Fields, o: Tensor, dirs, skips,
                                   part_o.data_ptr(), part_d.data_ptr(),
                                   stream_of(dev))
         build.check("multi_chord_bwd", err)
-        _launch_dens_bwd(dens_lib, fields, o, stacked, cols, R, skips_ptr,
-                         outs, dev)
+        launch_dens_bwd(dens_lib, fields, o, stacked, cols, skips[g], outs)
         if R:
             run_multi_chord_bwd.launches += 2
         d_o += part_o

@@ -118,6 +118,41 @@ def closest_tables(fields: Fields):
         pad_to_tiles(t) for t in (fields.sph, fields.aabb, fields.obb)))
 
 
+def active_rows(tab: Tensor) -> Tensor:
+    """[n] bool: the rows of a type table that can hit (sphere r2 >= 0,
+    box miss = 0; prepare_fields encodes an inactive primitive as r2 =
+    -1e30 or miss = +inf)."""
+    if tab.shape[1] == SPH_W:
+        return tab[:, S_R2] >= 0.0
+    return tab[:, A_MISS if tab.shape[1] == AABB_W else O_MISS] == 0.0
+
+
+def occlusion_tables(fields: Fields, skips):
+    """The occlusion kernels' tables for a launch with these skip targets
+    (B2's, and B6's with one): per type (spheres, AABBs, OBBs) a table
+    whose active rows owned by none of ``skips`` come first, padded to
+    whole tiles, then its active rows owned by one of them, padded
+    likewise; inactive rows are left out. Returns ((table, free rows,
+    owned rows), ...). Occlusion is an OR over the primitives, so neither
+    the order nor the ranks matter."""
+    key = tuple(sorted(set(skips)))
+
+    def make():
+        out = []
+        for tab, col in ((fields.sph, S_TGT), (fields.aabb, A_TGT),
+                         (fields.obb, O_TGT)):
+            act = active_rows(tab)
+            # NO_SKIP matches no row: unowned rows carry -1.
+            owned = torch.isin(ids(tab, col), torch.tensor(
+                key, dtype=torch.int32, device=tab.device))
+            free, mine = tab[act & ~owned], tab[act & owned]
+            out.append((torch.cat([pad_to_tiles(free), pad_to_tiles(mine)]),
+                        free.shape[0], mine.shape[0]))
+        return tuple(out)
+
+    return fields.cached(("occlusion", key), make)
+
+
 # ---------------------------------------------------------------------------
 # Plain building blocks (rays [c, 1] against table columns [n] -> [c, n])
 # ---------------------------------------------------------------------------
@@ -361,6 +396,17 @@ def any_hit_plain(fields: Fields, o: Tensor, d: Tensor, limit: Tensor,
     return out
 
 
+def any_hit_args(fields: Fields, skip: int, device) -> list:
+    """B6's table arguments for one skip target: per type (pointer, free
+    rows) of ``occlusion_tables(fields, (skip,))``. The kernel walks only
+    the free rows (active, not owned by ``skip``, padded to whole
+    tiles)."""
+    args = []
+    for tab, n_free, _ in occlusion_tables(fields, (skip,)):
+        args += [table_ptr(tab, device), n_free]
+    return args
+
+
 def run_any_hit(fields: Fields, o: Tensor, d: Tensor, limit, skip: int):
     """B6: o, d [R, 3] float32 (d of any length), ``limit`` [R] or
     broadcast, ``skip`` a target id (NO_SKIP for none) -> [R] bool: does
@@ -373,9 +419,11 @@ def run_any_hit(fields: Fields, o: Tensor, d: Tensor, limit, skip: int):
     check_operands(dev, o, d, limit)
     R = o.shape[0]
     occ = torch.empty((R,), dtype=torch.bool, device=dev)
-    err = lib.any_hit(o.data_ptr(), d.data_ptr(), limit.data_ptr(), R, skip,
-                      *table_args(fields, dev), occ.data_ptr(),
-                      stream_of(dev))
+    # The kernel's ray counter: warps take rays from it in chunks.
+    next_ray = torch.zeros((1,), dtype=torch.int32, device=dev)
+    err = lib.any_hit(o.data_ptr(), d.data_ptr(), limit.data_ptr(), R,
+                      *any_hit_args(fields, skip, dev), next_ray.data_ptr(),
+                      occ.data_ptr(), stream_of(dev))
     build.check("any_hit", err)
     if R:
         run_any_hit.launches += 1
@@ -506,6 +554,8 @@ def run_chord_loss_bwd(fields: Fields, o: Tensor, d: Tensor, skip: int,
     at S = 1 for the densities (the same gbar x chord)."""
     if on_cpu(o):
         return chord_loss_bwd_plain(fields, o, d, skip, gbar)
+    from audio_raytracer_tpu_torch.ops.cuda.fused import launch_dens_bwd
+
     lib = build.load("multi_chord_bwd")
     dens_lib = build.load("multi_chord_dens_bwd")
     dev, R = o.device, o.shape[0]
@@ -513,16 +563,12 @@ def run_chord_loss_bwd(fields: Fields, o: Tensor, d: Tensor, skip: int,
     d_o, d_d = torch.empty((R, 3), device=dev), torch.empty((R, 3),
                                                             device=dev)
     dens = tuple(torch.zeros((n,), device=dev) for n in fields.counts)
-    tabs = table_args(fields, dev)
     err = lib.chord_loss_bwd(o.data_ptr(), d.data_ptr(), gbar.data_ptr(), R,
-                             skip, *tabs, d_o.data_ptr(), d_d.data_ptr(),
-                             stream_of(dev))
+                             skip, *table_args(fields, dev), d_o.data_ptr(),
+                             d_d.data_ptr(), stream_of(dev))
     build.check("chord_loss_bwd", err)
-    keep, skips_ptr = skips_arg([skip])
-    err = dens_lib.multi_chord_dens_bwd(
-        o.data_ptr(), d.data_ptr(), gbar.data_ptr(), R, 1, skips_ptr, *tabs,
-        *(x.data_ptr() for x in dens), stream_of(dev))
-    build.check("multi_chord_dens_bwd", err)
+    launch_dens_bwd(dens_lib, fields, o, d[None], gbar[:, None], [skip],
+                    dens)
     if R:
         run_chord_loss_bwd.launches += 2
     return d_o, d_d, dens

@@ -24,11 +24,15 @@ and a fifth of its own:
 4. ``floors()``: counted operations x participation / ceiling for the
    forward at both lives and for the materials training step, beside
    measured medians.
-5. The attribution of B1 and B2 (``chip_smoke.py`` phases 2a and 3 call
-   it): ``loop_histograms()`` (opcode classes of their innermost loops),
-   ``occupancy()``, ``type_ablation()`` (each type's table alone against
-   its bound), ``resolution_shares()`` (how early B2's walk could stop per
-   warp) and ``sphere_branch_shares()`` (how often B1's square root runs).
+5. The attribution of B1, B2, B4 and B6 (``chip_smoke.py`` phases 2a, 3,
+   6 and 9 call it; ``attribution()`` runs it at part 3's shapes):
+   ``loop_histograms()`` (opcode classes of their innermost loops),
+   ``occupancy()``, ``by_type()`` and ``type_ablation()`` (each type's
+   table alone against its bound), ``resolution_shares()`` (how early B2's
+   walk could stop per warp), ``sphere_branch_shares()`` (how often B1's
+   square root runs), and ``any_hit_lockstep()`` and
+   ``any_hit_rotation()`` (what a walk in lock-step, and what lane refill
+   over a cyclic stream, would cost B6 over the walks its bound counts).
 
 Run on the card: ``python -m audio_raytracer_tpu_torch.tools.roofline``.
 """
@@ -109,27 +113,105 @@ def occl_ops(fields: K.Fields, live: int, open_pairs: int) -> int:
                         F.OCC_OPS["obb"])))
 
 
+def any_hit_walks(fields: K.Fields, o, d, limit, skip):
+    """([R] int64 primitives each ray walks in scan order up to and
+    including its first occluder, P = all of them when nothing occludes
+    it; [R] bool occluded)."""
+    P = fields.total
+    limit = K.ray_limits(limit, o.shape[0], o.device)
+    n = torch.empty(o.shape[0], dtype=torch.int64, device=o.device)
+    occ = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)
+    for c in ray_chunks(o.shape[0], P):
+        grid = K.any_hit_grid(fields, o[c], d[c], limit[c], skip)
+        occ[c] = grid.any(dim=-1)
+        n[c] = torch.where(occ[c], grid.to(torch.uint8).argmax(dim=-1) + 1, P)
+    return n, occ
+
+
+def walked_by_type(fields: K.Fields, n) -> list:
+    """Per type (spheres, AABBs, OBBs): [R] primitives of that type among
+    the first n[r] in scan order."""
+    out, start = [], 0
+    for cnt in fields.counts:
+        out.append((n - start).clamp(0, cnt))
+        start += cnt
+    return out
+
+
 def any_hit_work(fields: K.Fields, o, d, limit, skip) -> tuple:
     """(ray, primitive) pairs per type that B6 must test: each ray walks
     the primitives in scan order up to its first occluder, all of them
     when nothing occludes it."""
-    counts, P = fields.counts, fields.total
-    limit = K.ray_limits(limit, o.shape[0], o.device)
-    walked = torch.zeros(3, dtype=torch.int64, device=o.device)
-    for c in ray_chunks(o.shape[0], P):
-        grid = K.any_hit_grid(fields, o[c], d[c], limit[c], skip)
-        first = grid.to(torch.uint8).argmax(dim=-1)
-        n = torch.where(grid.any(dim=-1), first + 1, P)
-        start = 0
-        for k, cnt in enumerate(counts):
-            walked[k] += (n - start).clamp(0, cnt).sum()
-            start += cnt
-    return tuple(int(x) for x in walked)
+    n, _ = any_hit_walks(fields, o, d, limit, skip)
+    return tuple(int(w.sum()) for w in walked_by_type(fields, n))
 
 
 def any_hit_ops(fields: K.Fields, o, d, limit, skip) -> int:
     work = any_hit_work(fields, o, d, limit, skip)
     return sum(w * K.OPS[k] for w, k in zip(work, ("sphere", "aabb", "obb")))
+
+
+def any_hit_lockstep(fields: K.Fields, o, d, limit, skip, lanes=(32, 256),
+                     log=print) -> dict:
+    """How much a walk in lock-step costs B6 over the walks its bound
+    counts. A ray's walk is the counted operations (``OPS``) of the
+    primitives up to its first occluder in scan order; a group of
+    ``lanes`` consecutive rays that walks until its last ray resolves
+    pays lanes x its longest walk. Returns {lanes: sum over groups of
+    lanes x longest walk / sum of the walks} (over the whole groups), and
+    "never_occluded" (share of rays), "median_walk_occluded" and
+    "p90_walk_occluded" (primitives, over the occluded rays)."""
+    n, occ = any_hit_walks(fields, o, d, limit, skip)
+    walk = sum(w * K.OPS[k] for w, k in zip(walked_by_type(fields, n),
+                                             ("sphere", "aabb", "obb")))
+    out = {}
+    for L in lanes:
+        w = walk[:walk.shape[0] // L * L].reshape(-1, L)
+        out[L] = float(L * w.amax(dim=1).sum()) / max(float(w.sum()), 1.0)
+    hit = n[occ].double()
+    out["never_occluded"] = float((~occ).double().mean())
+    for key, q in (("median_walk_occluded", 0.5), ("p90_walk_occluded", 0.9)):
+        out[key] = float(hit.quantile(q)) if hit.numel() else 0.0
+    log(f"  B6 lock-step factor (lanes x longest walk / walks) {out}")
+    return out
+
+
+def any_hit_rotation(fields: K.Fields, o, d, limit, skip, sub=64,
+                     log=print) -> float:
+    """What lane refill costs B6 over the walks its bound counts. B6
+    streams the rows round and round, and a ray that joins at row k walks
+    from there, round the cycle, up to and including its first occluder
+    (every row when none). Returns the counted operations (``OPS``) of
+    those walks, averaged over joins at the multiples of ``sub`` rows (the
+    refill points), over those of the scan-order walks."""
+    P = fields.total
+    dev = o.device
+    cost = torch.cat([torch.full((n,), float(K.OPS[k]), dtype=torch.float64,
+                                 device=dev)
+                      for n, k in zip(fields.counts, ("sphere", "aabb",
+                                                      "obb"))])
+    # Counted operations of rows [0, i) over two turns of the cycle.
+    cum = torch.cat([cost.new_zeros(1), cost.cumsum(0),
+                     cost.sum() + cost.cumsum(0)])
+    starts = torch.arange(0, P, sub, device=dev)
+    row = torch.arange(2 * P, dtype=torch.int32, device=dev)
+    limit = K.ray_limits(limit, o.shape[0], dev)
+    rotated = scan = 0.0
+    for c in ray_chunks(o.shape[0], P):
+        grid = K.any_hit_grid(fields, o[c], d[c], limit[c], skip)
+        occ = torch.cat([grid, grid], dim=1)
+        # The first occluder at or after each row (2P: none).
+        nxt = torch.where(occ, row, 2 * P).flip(1).cummin(1).values.flip(1)
+        at = nxt[:, starts].long()
+        end = torch.where(at < 2 * P, at + 1, starts + P)
+        rotated += float((cum[end] - cum[starts]).mean(dim=1).sum())
+        first = nxt[:, 0].long()
+        scan += float(torch.where(first < 2 * P, cum[(first + 1).clamp(
+            max=2 * P)], cum[P]).sum())
+    out = rotated / max(scan, 1.0)
+    log(f"  B6 refill walks (joins every {sub} rows) over scan-order "
+        f"walks: {out:.4f}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -222,21 +304,29 @@ def participation(scene, dirs, lives=LIVES, max_bounces=4, device="cuda",
 # ---------------------------------------------------------------------------
 
 
-def standalone(scene, dirs, ceil, device="cuda", reps=5, log=print) -> dict:
-    """{kernel: (median ms, counted ops)} of B1-B8 at the JAX tool's
-    shapes, each rate printed against the ceiling."""
-    from audio_raytracer_tpu_torch.ops.cuda.backend import prepare_fields
-
-    dev = resolve_device(device)
-    fields = prepare_fields(scene)
+def standalone_inputs(dirs, dev):
+    """Part 3's rays: origins uniform in (-50, 50) from seed 1, the
+    directions ``dirs`` and four rolls of them (5 sets), and cotangents
+    |N(0, 1)| x 1e-3 for 4 sets."""
     n = dirs.shape[0]
     gen = torch.Generator(device=dev).manual_seed(1)
     o = torch.rand((n, 3), generator=gen, device=dev) * 100.0 - 50.0
     dirs5 = [dirs] + [torch.roll(dirs, 17 * (i + 1), dims=0).contiguous()
                       for i in range(4)]
-    limits = torch.full((n, 5), 80.0, device=dev)
-    init = torch.zeros((n, 5), dtype=torch.bool, device=dev)
     gbar = torch.randn((n, 4), generator=gen, device=dev).abs() * 1e-3
+    return o, dirs5, gbar
+
+
+def standalone(scene, dirs, ceil, device="cuda", reps=5, log=print) -> dict:
+    """{kernel: (median ms, counted ops)} of B1-B8 at the JAX tool's
+    shapes, each rate printed against the ceiling."""
+    from audio_raytracer_tpu_torch.ops.cuda.backend import prepare_fields
+
+    fields = prepare_fields(scene)
+    n = dirs.shape[0]
+    o, dirs5, gbar = standalone_inputs(dirs, resolve_device(device))
+    limits = torch.full((n, 5), 80.0, device=o.device)
+    init = torch.zeros((n, 5), dtype=torch.bool, device=o.device)
     g1 = gbar[:, 0].contiguous()
     skips4 = (0, 1, 2, 3)
     cases = (
@@ -305,42 +395,58 @@ def floors(ceil, sweeps, fields: K.Fields, rays=R, measured=None,
 
 
 # ---------------------------------------------------------------------------
-# 5. Attribution of B1 and B2
+# 5. Attribution of B1, B2, B4 and B6
 # ---------------------------------------------------------------------------
 
 TYPES = ("sphere", "aabb", "obb")
 
 
-def loop_histograms(log=print) -> dict:
+# The kernels part 5 reads: (library, SASS name pattern of the instance).
+LOOP_KERNELS = {
+    "B1": ("closest_hit", r"closest_hit_kernel"),
+    "B2": ("multi_any_hit", r"multi_any_hit_kernelILi5E"),
+    "B4": ("multi_chord_dens_bwd", r"multi_chord_dens_bwd_kernelILi4E"),
+    "B6": ("any_hit", r"^_Z\d+any_hit_kernel"),
+}
+
+
+def loop_histograms(kernels=tuple(LOOP_KERNELS), log=print) -> dict:
     """{kernel: [opcode classes of each innermost loop]} of B1
-    (``closest_hit_kernel``) and B2 at S = 5 (``multi_any_hit_kernel<5>``)
-    in the built libraries: static counts, so a loop holds its rare paths
-    (a slow-path reciprocal, the sphere hit) beside its common one, and
-    each unrolled iteration."""
+    (``closest_hit_kernel``), B2 at S = 5, B4 at S = 4 and B6 in the built
+    libraries: static counts, so a loop holds its rare paths (a
+    slow-path reciprocal, the sphere hit) beside its common one, and each
+    unrolled iteration."""
     out = {}
-    for name, pattern in (("closest_hit", r"closest_hit_kernel"),
-                          ("multi_any_hit", r"multi_any_hit_kernelILi5E")):
+    for key in kernels:
+        name, pattern = LOOP_KERNELS[key]
         loops = C.loop_bodies(C.library_sass(name), pattern)
-        out[name] = [lp["classes"] for lps in loops.values() for lp in lps]
-        for i, classes in enumerate(out[name]):
-            log(f"  {name} loop {i}: {classes}")
+        out[key] = [lp["classes"] for lps in loops.values() for lp in lps]
+        for i, classes in enumerate(out[key]):
+            log(f"  {key} {name} loop {i}: {classes}")
     return out
 
 
 def occupancy(sets=(5,)) -> dict:
-    """Resident blocks per SM of B1 and of B2 at each S in ``sets``."""
+    """Resident blocks per SM of B1, B6, and of B2 and B4 at each S in
+    ``sets``."""
     import ctypes
 
     from audio_raytracer_tpu_torch.ops.cuda import build
 
     n = ctypes.c_int(0)
-    build.check("occupancy", build.load("closest_hit")
-                .closest_hit_occupancy(ctypes.byref(n)))
-    out = {"B1": n.value}
+    out = {}
+    for key, lib, fn in (("B1", "closest_hit", "closest_hit_occupancy"),
+                         ("B6", "any_hit", "any_hit_occupancy")):
+        build.check("occupancy", getattr(build.load(lib), fn)(
+            ctypes.byref(n)))
+        out[key] = n.value
     for S in sets:
-        build.check("occupancy", build.load("multi_any_hit")
-                    .multi_any_hit_occupancy(S, ctypes.byref(n)))
-        out[f"B2 S={S}"] = n.value
+        for key, lib in (("B2", "multi_any_hit"),
+                         ("B4", "multi_chord_dens_bwd")):
+            build.check("occupancy", getattr(build.load(lib),
+                                             f"{lib}_occupancy")(
+                S, ctypes.byref(n)))
+            out[f"{key} S={S}"] = n.value
     return out
 
 
@@ -351,29 +457,37 @@ def one_type(fields: K.Fields, kind: str) -> K.Fields:
                       for k, t in zip(TYPES, tabs)))
 
 
+def by_type(fields: K.Fields, run, ops, ceil, reps=5, name="",
+            log=print) -> dict:
+    """A kernel on each type's table alone: {type: dict(ms, bound_ms)},
+    ``run(f)`` launching it on the tables ``f`` and ``ops(f)`` counting
+    its operations there, the bound against the ceiling ``ceil``."""
+    out = {}
+    for kind in TYPES:
+        f = one_type(fields, kind)
+        out[kind] = dict(ms=cuda_ms(lambda: run(f), reps),
+                         bound_ms=ops(f) / ceil * 1e3)
+        log(f"  {name} {kind} alone: {out[kind]['ms']:.4f} ms (bound "
+            f"{out[kind]['bound_ms']:.4f})")
+    return out
+
+
 def type_ablation(fields: K.Fields, b1_args, b2_args, ceil, reps=5,
                   log=print) -> dict:
     """B1 (o, d, alive) and B2 (o, dirs, limits, skips, init) on each
-    type's table alone: {type: dict(b1_ms, b1_bound_ms, b2_ms,
-    b2_bound_ms)}, the bounds against the ceiling ``ceil``."""
+    type's table alone: {"B1": {type: dict(ms, bound_ms)}, "B2": ...},
+    the bounds against the ceiling ``ceil``."""
     o, d, alive = b1_args
     o2, dirs, limits, skips, init = b2_args
     live1 = int(alive.sum())
     live2, open2 = int((~init.all(dim=1)).sum()), int((~init).sum())
-    out = {}
-    for kind in TYPES:
-        f = one_type(fields, kind)
-        rec = dict(
-            b1_ms=cuda_ms(lambda: K.run_closest_hit(f, o, d, alive), reps),
-            b1_bound_ms=closest_ops(f, live1) / ceil * 1e3,
-            b2_ms=cuda_ms(lambda: F.run_multi_any_hit(f, o2, dirs, limits,
-                                                      skips, init), reps),
-            b2_bound_ms=occl_ops(f, live2, open2) / ceil * 1e3)
-        out[kind] = rec
-        log(f"  {kind} alone: B1 {rec['b1_ms']:.4f} ms (bound "
-            f"{rec['b1_bound_ms']:.4f}), B2 {rec['b2_ms']:.4f} ms (bound "
-            f"{rec['b2_bound_ms']:.4f})")
-    return out
+    return {
+        "B1": by_type(fields, lambda f: K.run_closest_hit(f, o, d, alive),
+                      lambda f: closest_ops(f, live1), ceil, reps, "B1",
+                      log),
+        "B2": by_type(fields, lambda f: F.run_multi_any_hit(
+            f, o2, dirs, limits, skips, init),
+            lambda f: occl_ops(f, live2, open2), ceil, reps, "B2", log)}
 
 
 def _occluders(fields: K.Fields, o, d, lim) -> torch.Tensor:
@@ -447,6 +561,34 @@ def sphere_branch_shares(fields: K.Fields, o, d, lanes=(1, 32, 64),
     return out
 
 
+def attribution(scene, dirs, ceil, device="cuda", reps=5, log=print) -> dict:
+    """Part 5 at part 3's shapes: the loop classes and resident blocks of
+    B1, B2, B4 and B6, B4 (S = 4) and B6 on each type's table alone
+    against their bounds, and B6's lock-step and refill factors."""
+    from audio_raytracer_tpu_torch.ops.cuda.backend import prepare_fields
+
+    fields = prepare_fields(scene)
+    o, dirs5, gbar = standalone_inputs(dirs, resolve_device(device))
+    out = dict(loops=loop_histograms(log=log), resident_blocks=occupancy(
+        sets=(1, 4, 5)))
+    log(f"resident blocks per SM: {out['resident_blocks']}")
+    skips4 = (0, 1, 2, 3)
+    out["B4"] = by_type(
+        fields, lambda f: F.run_multi_chord_dens_bwd(f, o, dirs5[1:], skips4,
+                                                     gbar),
+        lambda f: pair_ops(f, o.shape[0], 4, F.CHORD_OPS), ceil, reps, "B4",
+        log)
+    out["B6"] = by_type(
+        fields, lambda f: K.run_any_hit(f, o, dirs, 80.0, NO_SKIP),
+        lambda f: any_hit_ops(f, o, dirs, 80.0, NO_SKIP), ceil, reps, "B6",
+        log)
+    out["B6 lockstep"] = any_hit_lockstep(fields, o, dirs, 80.0, NO_SKIP,
+                                          log=log)
+    out["B6 rotation"] = any_hit_rotation(fields, o, dirs, 80.0, NO_SKIP,
+                                          log=log)
+    return out
+
+
 def measure_medians(scene, dirs, dev, steps=3) -> dict:
     """Host-clock medians (ms) of the compacted headline frame
     (``compact_rays`` and ``compact_unordered``, bench.py's production
@@ -500,6 +642,7 @@ def main():
     dirs = fibonacci_directions(R, device=dev)
     sweeps = participation(scene, dirs, device=dev)
     standalone(scene, dirs, ceil, device=dev)
+    attribution(scene, dirs, ceil, device=dev)
     floors(ceil, sweeps, prepare_fields(scene),
            measured=measure_medians(scene, dirs, dev))
     print(f"roofline: {time.perf_counter() - t0:.1f} s")

@@ -232,7 +232,7 @@ class TestPaddedTables:
         kinds = (scene.spheres, scene.aabbs, scene.obbs)
         cols = (K.S_TGT, K.A_TGT, K.O_TGT)
         for (tab, n_free, n_owned), kind, col in zip(
-                F.occlusion_tables(fields, skips), kinds, cols):
+                K.occlusion_tables(fields, skips), kinds, cols):
             ids = K.ids(tab, col).tolist()
             free_pad = -n_free % K.TILE
             free = ids[:n_free]
@@ -253,10 +253,10 @@ class TestPaddedTables:
             row = K.miss_row(width, "cpu")
             tab = K.pad_to_tiles(row[None])
             assert tab.shape == (K.TILE, width)
-            assert not F.active_rows(tab).any()
+            assert not K.active_rows(tab).any()
         fields = prepare_fields(carry(jscene))
-        assert not F.active_rows(K.pad_to_tiles(fields.aabb)[13:]).any()
-        assert F.active_rows(fields.aabb).all()
+        assert not K.active_rows(K.pad_to_tiles(fields.aabb)[13:]).any()
+        assert K.active_rows(fields.aabb).all()
 
     def test_closest_ranks_are_the_original_scan_indices(self, backends,
                                                          rays):
@@ -292,7 +292,7 @@ class TestPaddedTables:
             init[::init_every, 0] = True
         skips = (NO_SKIP,) + tuple(range(S - 1))
         jskips = (J_NO_SKIP,) + tuple(range(S - 1))
-        split = K.Fields(*(x[0] for x in F.occlusion_tables(kb.fields,
+        split = K.Fields(*(x[0] for x in K.occlusion_tables(kb.fields,
                                                             skips)))
         occ = F.multi_any_hit_plain(split, t(off), [t(x) for x in dirs],
                                     t(limits), skips,
@@ -316,7 +316,7 @@ class TestPaddedTables:
         o, d = rays
         off, dirs, limits = bounce_sets(jscene.target_positions, o, d)
         skips = (NO_SKIP,) + tuple(range(limits.shape[1] - 1))
-        tabs = F.occlusion_tables(fields, skips)
+        tabs = K.occlusion_tables(fields, skips)
         assert tabs[1][1] + tabs[1][2] == int(act.sum())
         init = torch.zeros(limits.shape, dtype=torch.bool)
         args = (t(off), [t(x) for x in dirs], t(limits), skips, init)
@@ -522,7 +522,8 @@ class TestAdjointWrappers:
             return tuple(ctypes.cast(ptr, ctypes.POINTER(ctypes.c_int))[:n])
 
         class Lib:
-            def multi_chord_dens_bwd(self, o, dirs, g, R, S, skips, *rest):
+            def multi_chord_dens_bwd(self, rec_d, rec_inv, R, S, skips,
+                                     *rest):
                 calls.append(("B4", R, S, read_skips(skips, S)))
                 return 0
 
@@ -551,9 +552,11 @@ class TestAdjointWrappers:
         assert (F.run_multi_chord_dens_bwd.launches - before[0],
                 F.run_multi_chord_bwd.launches - before[1]) == (2, 4)
         lo, hi = skips[:16], skips[16:]
-        assert calls == [("B4", R, 16, lo), ("B4", R, 3, hi),
-                         ("B5", R, 16, lo), ("B4", R, 16, lo),
-                         ("B5", R, 3, hi), ("B4", R, 3, hi)]
+        # B4 takes its ray records padded to whole tiles.
+        Rp = F.RAY_TILE_PAD
+        assert calls == [("B4", Rp, 16, lo), ("B4", Rp, 3, hi),
+                         ("B5", R, 16, lo), ("B4", Rp, 16, lo),
+                         ("B5", R, 3, hi), ("B4", Rp, 3, hi)]
 
     def test_plain_versions_do_not_count_launches(self, backends, rays):
         o, d = rays
@@ -564,3 +567,108 @@ class TestAdjointWrappers:
         F.run_multi_chord_bwd(backends[0].fields, t(o), [t(d)], (0,), g)
         assert before == (F.run_multi_chord_dens_bwd.launches,
                           F.run_multi_chord_bwd.launches)
+
+
+def dens_inputs(jscene, R=96, S=3, seed=8):
+    """Bounce-like origins, S unit direction sets (toward targets 0 and 1,
+    then a free one, a few with zero components) and a cotangent [R, S]
+    that is zero on every set of a third of the rays (missing rays in the
+    training step) and on single sets of a few others."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-12.0, 12.0, (R, 3)).astype(np.float32)
+    dirs = []
+    for s in range(S):
+        v = (np.asarray(jscene.target_positions[s]) - o if s < 2
+             else rng.normal(size=(R, 3)).astype(np.float32))
+        v[s::13, s % 3] = 0.0
+        dirs.append((v / np.linalg.norm(v, axis=1, keepdims=True))
+                    .astype(np.float32))
+    g = rng.normal(size=(R, S)).astype(np.float32)
+    g[::3] = 0.0
+    g[1::10, 1] = 0.0
+    return o, dirs, g, (0, 1, J_NO_SKIP)[:S], (0, 1, NO_SKIP)[:S]
+
+
+class TestDensRecords:
+    def test_records_unpack_bit_for_bit(self, jscene):
+        # B4's ray records: a head (o, live), then per set (d, g) in the
+        # first and (safe_inv(d), g) in the second; padding records zero.
+        o, dirs, g, _, _ = dens_inputs(jscene, R=300)
+        dirs[2][::7] = 1e-13  # nudged on every axis
+        R, S = o.shape[0], len(dirs)
+        stacked = torch.stack([t(x) for x in dirs])
+        rec_d, rec_inv = F.dens_records(t(o), stacked, t(g))
+        Rp = -(-R // F.RAY_TILE_PAD) * F.RAY_TILE_PAD
+        assert rec_d.shape == rec_inv.shape == (Rp, 1 + S, 4)
+        assert Rp % F.RAY_TILE_PAD == 0 and Rp >= R
+
+        def bits(x):
+            return x.contiguous().view(torch.int32)
+
+        live = (t(g) != 0).any(dim=1)
+        assert 0 < int(live.sum()) < R
+        for rec, x in ((rec_d, stacked), (rec_inv, K.safe_inv(stacked))):
+            assert torch.equal(bits(rec[:R, 0, :3]), bits(t(o)))
+            assert torch.equal(rec[:R, 0, 3], live.float())
+            assert torch.equal(bits(rec[:R, 1:, :3]),
+                               bits(x.transpose(0, 1)))
+            assert torch.equal(bits(rec[:R, 1:, 3]), bits(t(g)))
+            assert not rec[R:].any()  # not live, g = 0
+        assert torch.isfinite(rec_inv).all()
+
+    def test_dens_bwd_plain_on_rays_with_a_cotangent(self, jscene, backends):
+        # B4 skips the rays whose cotangents are all zero: the plain
+        # version on the rest equals it on every ray (the per-primitive
+        # sums drop only +0 terms and run in another order: 1e-6 of the
+        # sum of |g x chord|), and both equal the JAX tiers' density
+        # gradient (the Pallas kernel in interpret mode, and autodiff
+        # through the jnp permeation chords) at tests/test_torch_train.py's
+        # tolerances.
+        import dataclasses
+
+        from audio_raytracer_tpu.ops.pallas import fused as JF
+
+        fields = backends[0].fields
+        pb = backends[2]
+        o, dirs, g, jskips, skips = dens_inputs(jscene)
+        live = (g != 0).any(axis=1)
+        every = F.multi_chord_dens_bwd_plain(fields, t(o),
+                                             [t(x) for x in dirs], skips,
+                                             t(g))
+        some = F.multi_chord_dens_bwd_plain(fields, t(o[live]),
+                                            [t(x[live]) for x in dirs],
+                                            skips, t(g[live]))
+        scale = F.multi_chord_dens_bwd_plain(fields, t(o),
+                                             [t(x) for x in dirs], skips,
+                                             t(np.abs(g)))
+        jp = JF.run_multi_chord_dens_bwd(
+            pb._chord_fields, pb.counts, jnp.asarray(o),
+            [jnp.asarray(x) for x in dirs], jskips, jnp.asarray(g),
+            interpret=True)
+
+        def loss(ds, da, do):
+            sc = jscene
+            for name, dens in (("spheres", ds), ("aabbs", da),
+                               ("obbs", do)):
+                prims = getattr(sc, name)
+                sc = sc.replace(**{name: dataclasses.replace(
+                    prims, material=dataclasses.replace(prims.material,
+                                                        density=dens))})
+            return sum(jnp.sum(jnp.asarray(g[:, s]) * jint.permeation_loss(
+                jnp.asarray(o), jnp.asarray(dirs[s]), sc, jskips[s]))
+                for s in range(len(dirs)))
+
+        jd = jax.grad(loss, argnums=(0, 1, 2))(
+            *(x.material.density for x in (jscene.spheres, jscene.aabbs,
+                                           jscene.obbs)))
+        for i, k in enumerate(("s_dens", "a_dens", "o_dens")):
+            a, m = every[i], scale[i]
+            assert (a != 0).any(), k
+            np.testing.assert_allclose(some[i].numpy(), a.numpy(), rtol=0,
+                                       atol=1e-6 * float(m.max()),
+                                       err_msg=k)
+            for ref in (jp[k], jd[i]):
+                np.testing.assert_allclose(a.numpy(), np.asarray(ref),
+                                           rtol=2e-4,
+                                           atol=2e-5 * float(m.max()),
+                                           err_msg=k)

@@ -118,6 +118,37 @@ def test_occluded_unbounded_follows_the_jnp_tier(backends, rays):
     assert np.asarray(pb.occluded(o, d, inf)).all()
 
 
+@pytest.mark.parametrize("skip", [NO_SKIP, 0, 1])
+@pytest.mark.parametrize("rows", ["free", "padded", "rotated"])
+def test_free_rows_occlude_as_the_skip_target(backends, rays, skip, rows):
+    # B6 walks only the free rows of occlusion_tables(fields, (skip,))
+    # (active, owned by no skip target) with no skip compare, padded to
+    # whole tiles, and each lane meets them in a rotation of the scan order
+    # that depends on where its ray joined the cyclic stream. Occlusion is
+    # an OR over the primitives, so none of that changes a flag: each
+    # equals any_hit_plain with the skip on the full tables, and the JAX
+    # jnp tier's.
+    kb, _, jd = backends
+    o, d, _, limit = rays
+    args = (t(o), t(d), t(limit))
+    tabs = []
+    for i, (tab, n_free, _) in enumerate(K.occlusion_tables(kb.fields,
+                                                            (skip,))):
+        if rows == "padded":
+            n_free = -(-n_free // K.TILE) * K.TILE
+        tab = tab[:n_free]
+        if rows == "rotated":
+            tab = torch.roll(tab, 3 * i + 2, dims=0)
+        tabs.append(tab)
+    got = K.any_hit_plain(K.Fields(*tabs), *args, NO_SKIP)
+    assert torch.equal(got, K.any_hit_plain(kb.fields, *args, skip))
+    jskip = None if skip == NO_SKIP else skip
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jd.occluded(o, d, limit,
+                                            skip_target_id=jskip)))
+    assert got.any() and not got.all()
+
+
 def test_occluded_broadcast_limit_and_inactive_primitives(jscene, rays):
     o, d, _, _ = rays
     scene = carry(jscene)
@@ -316,8 +347,8 @@ def test_kernel_launches_and_arguments(backends, monkeypatch):
         return tuple(ctypes.cast(ptr, ctypes.POINTER(ctypes.c_int))[:n])
 
     class Lib:
-        def any_hit(self, o, d, lim, R, skip, *rest):
-            calls.append(("B6", R, skip))
+        def any_hit(self, o, d, lim, R, *tables):
+            calls.append(("B6", R, tables[0]))
             return 0
 
         def multi_chord(self, o, d, R, S, skips, *rest):
@@ -328,7 +359,7 @@ def test_kernel_launches_and_arguments(backends, monkeypatch):
             calls.append(("B8", R, skip))
             return 0
 
-        def multi_chord_dens_bwd(self, o, d, g, R, S, skips, *rest):
+        def multi_chord_dens_bwd(self, rec_d, rec_inv, R, S, skips, *rest):
             calls.append(("B4", R, S, ptr_ints(skips, S)))
             return 0
 
@@ -338,8 +369,13 @@ def test_kernel_launches_and_arguments(backends, monkeypatch):
 
     monkeypatch.setattr(build, "load", lambda name: Lib())
     monkeypatch.setattr(K, "table_args", lambda fields, dev: [0] * 6)
-    monkeypatch.setattr(K, "stream_of", lambda dev: 0)
-    monkeypatch.setattr(C, "stream_of", lambda dev: 0)
+    # B6 walks the free rows of the skip target's tables: the stand-in
+    # sees the skip as the first table argument.
+    monkeypatch.setattr(K, "any_hit_args",
+                        lambda fields, skip, dev: [skip] + [0] * 5)
+    monkeypatch.setattr(F, "table_args", lambda fields, dev: [0] * 6)
+    for mod in (K, F, C):
+        monkeypatch.setattr(mod, "stream_of", lambda dev: 0)
     fields = backends[0].fields
     o = torch.zeros((5, 3), device="meta")
     g = torch.ones((5,), device="meta")
@@ -352,8 +388,10 @@ def test_kernel_launches_and_arguments(backends, monkeypatch):
     x = torch.ones((16, 512), device="meta")
     assert C.run_calibrate("occl", 176, x, [g] * 6).shape == (16, 512)
     assert [a - b for a, b in zip(launches(), before)] == [1, 1, 2, 1]
+    # B4 takes its ray records padded to whole tiles.
     assert calls == [("B6", 5, 1), ("B3", 5, 1, (NO_SKIP,)), ("B8", 5, 0),
-                     ("B4", 5, 1, (0,)), ("B9", 16 * 512, 5, 1, 176)]
+                     ("B4", F.RAY_TILE_PAD, 1, (0,)),
+                     ("B9", 16 * 512, 5, 1, 176)]
 
 
 def test_plain_versions_count_no_launches_and_empty_scenes(backends,
@@ -477,8 +515,71 @@ SASS_B1_B2 = """
 """
 
 
+# B4's: a barrier wait loop (no float32), then the ray loop of an AABB
+# block: a uniform loop counter, the record head and the test of its live
+# slot, whose forward branch (a ray without a cotangent) stays inside the
+# loop, the set records, a primitive's rare branch; the S = 1 instance is
+# not the one its pattern picks.
+SASS_B4 = """
+        Function : _Z27multi_chord_dens_bwd_kernelILi1EEvPKfS1_ii5SkipsS1_iS1_iS1_iiiPfS3_S3_
+        /*0000*/                   FADD R8, -R4, R20 ;
+        /*0010*/               @P2 BRA 0x0 ;
+        Function : _Z27multi_chord_dens_bwd_kernelILi4EEvPKfS1_ii5SkipsS1_iS1_iS1_iiiPfS3_S3_
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], R2 ;
+        /*0020*/              @!P0 BRA 0x10 ;
+        /*0030*/                   UIMAD UR8, UR5, 0x50, UR14 ;
+        /*0040*/                   UIADD3 UR5, UR5, 0x1, URZ ;
+        /*0050*/                   UISETP.NE.AND UP0, UPT, UR5, 0x80, UPT ;
+        /*0060*/                   LDS.128 R20, [UR8] ;
+        /*0070*/                   FSETP.NEU.AND P0, PT, R23, RZ, PT ;
+        /*0080*/              @!P0 BRA 0x130 ;
+        /*0090*/                   LDS.128 R4, [UR8+0x10] ;
+        /*00a0*/                   BSSY B0, 0x110 ;
+        /*00b0*/              @!P4 BRA 0x100 ;
+        /*00c0*/                   FADD R9, R24, -R20 ;
+        /*00d0*/                   FMUL R10, R9, R4 ;
+        /*00e0*/                   FMNMX R11, R10, R12, PT ;
+        /*00f0*/                   FSEL R13, R11, RZ, P1 ;
+        /*0100*/                   FFMA R38, R13, R7, R38 ;
+        /*0110*/                   BSYNC B0 ;
+        /*0120*/                   FADD R40, R40, R23 ;
+        /*0130*/                   PLOP3.LUT P0, PT, PT, PT, UP0, 0x80, 0x0 ;
+        /*0140*/               @P0 BRA 0x30 ;
+        /*0150*/                   EXIT ;
+"""
+
+# B6's: the step loop holds the refill (warp vote, shuffle, the counter's
+# atomic) and a row loop, so only the row loop is innermost; the pattern
+# leaves out B2's kernel, whose name also ends in any_hit_kernel.
+SASS_B6 = """
+        Function : _Z20multi_any_hit_kernelILi5EEvPKfS1_S1_PKhi5Skips6StreamPh
+        /*0000*/                   FADD R8, -R4, R20 ;
+        /*0010*/               @P2 BRA 0x0 ;
+        Function : _Z14any_hit_kernelPKfS0_S0_i6StreamPiPh
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   VOTE.ANY R2, PT, !P1 ;
+        /*0020*/                   POPC R3, R2 ;
+        /*0030*/               @P3 ATOMG.E.ADD.STRONG.GPU PT, R5, desc[UR6][R6.64], R4 ;
+        /*0040*/                   SHFL.IDX PT, R5, R5, RZ, 0x1f ;
+        /*0050*/                   LDS.128 R8, [R0] ;
+        /*0060*/                   LDS.64 R12, [R0+0x10] ;
+        /*0070*/                   FADD R14, R8, -R20 ;
+        /*0080*/                   FMUL R15, R14, R24 ;
+        /*0090*/                   FMNMX R16, R15, R17, !PT ;
+        /*00a0*/                   FSETP.GEU.AND P2, PT, R16, R25, PT ;
+        /*00b0*/                   SEL R18, RZ, 0x1, P2 ;
+        /*00c0*/                   LOP3.LUT R19, R19, R18, RZ, 0xfc, !PT ;
+        /*00d0*/               @P4 BRA 0x50 ;
+        /*00e0*/                   BAR.RED.POPC RZ, 0x0, P5 ;
+        /*00f0*/               @P6 BRA 0x10 ;
+        /*0100*/                   EXIT ;
+"""
+
+
 @pytest.mark.parametrize("kernel", ["calibrate", "closest_hit",
-                                    "multi_any_hit"])
+                                    "multi_any_hit", "multi_chord_dens_bwd",
+                                    "any_hit"])
 def test_sass_loop_body_counts(kernel):
     if kernel == "calibrate":
         counts = C.loop_body_counts(SASS_B9)
@@ -486,6 +587,26 @@ def test_sass_loop_body_counts(kernel):
         fp32, hist = counts["occl", 88]
         assert fp32 == 6
         assert hist["LDS"] == 1 and hist["IADD3"] == 1 and hist["BRA"] == 1
+        return
+    if kernel in ("multi_chord_dens_bwd", "any_hit"):
+        # The patterns chip_smoke.py's phase 2a reads.
+        from audio_raytracer_tpu_torch.tools.roofline import LOOP_KERNELS
+
+        key = "B4" if kernel == "multi_chord_dens_bwd" else "B6"
+        name, pattern = LOOP_KERNELS[key]
+        assert name == kernel
+        bodies = C.loop_bodies(SASS_B4 if key == "B4" else SASS_B6, pattern)
+        (fn, loops), = bodies.items()
+        assert fn.startswith("_Z27multi_chord_dens_bwd_kernelILi4E"
+                             if key == "B4" else "_Z14any_hit_kernel")
+        got = [(lp["start"], lp["end"], lp["classes"]) for lp in loops]
+        if key == "B4":
+            # The wait loop holds no float32 instruction and is left out.
+            assert got == [(0x30, 0x140, dict(fp32=7, int=1, mufu=0, lds=2,
+                                               branch=5, other=3))]
+        else:
+            assert got == [(0x50, 0xd0, dict(fp32=5, int=1, mufu=0, lds=2,
+                                              branch=1, other=0))]
         return
     pattern = {"closest_hit": r"closest_hit_kernel",
                "multi_any_hit": r"multi_any_hit_kernelILi5E"}[kernel]
@@ -523,3 +644,62 @@ def test_any_hit_work_counts_pairs_up_to_the_first_occluder(backends,
     assert any_hit_work(fields, t(o), t(d), t(limit), NO_SKIP) == \
         tuple(want)
     assert 0 < want.sum() < R * fields.total
+
+
+def test_any_hit_lockstep_recounts_lanes_times_the_longest_walk(backends,
+                                                                rays):
+    # B6's lock-step factor: a ray's walk is the counted operations (OPS)
+    # of the primitives up to its first occluder in scan order; a group of
+    # L rays in lock-step pays L x its longest walk.
+    from audio_raytracer_tpu_torch.tools.roofline import any_hit_lockstep
+
+    fields = backends[0].fields
+    o, d, _, limit = rays
+    grid = K.any_hit_grid(fields, t(o), t(d), t(limit), NO_SKIP).numpy()
+    cost = np.repeat([K.OPS["sphere"], K.OPS["aabb"], K.OPS["obb"]],
+                     fields.counts)
+    occ = grid.any(axis=1)
+    n = np.where(occ, grid.argmax(axis=1) + 1, grid.shape[1])
+    walk = np.array([cost[:k].sum() for k in n], np.float64)
+    got = any_hit_lockstep(fields, t(o), t(d), t(limit), NO_SKIP,
+                           lanes=(1, 8, 32), log=lambda *a: None)
+    assert got[1] == 1.0
+    for L in (8, 32):
+        w = walk.reshape(-1, L)
+        assert got[L] == pytest.approx(L * w.max(axis=1).sum() / w.sum(),
+                                       rel=1e-12)
+        assert got[L] > 1.0
+    assert got["never_occluded"] == pytest.approx(1.0 - occ.mean())
+    for key, q in (("median_walk_occluded", 0.5), ("p90_walk_occluded",
+                                                   0.9)):
+        assert got[key] == pytest.approx(np.quantile(n[occ], q))
+
+
+@pytest.mark.parametrize("sub", [1, 4])
+def test_any_hit_rotation_recounts_walks_from_each_join(backends, rays, sub):
+    # B6's refill factor: a ray that joins the cyclic row stream at row k
+    # walks round the cycle from k up to and including its first occluder
+    # (every row when none); averaged over joins at multiples of sub rows
+    # and summed over rays, over the scan-order walks (k = 0).
+    from audio_raytracer_tpu_torch.tools.roofline import any_hit_rotation
+
+    fields = backends[0].fields
+    o, d, _, limit = rays
+    grid = K.any_hit_grid(fields, t(o), t(d), t(limit), NO_SKIP).numpy()
+    cost = np.repeat([K.OPS["sphere"], K.OPS["aabb"], K.OPS["obb"]],
+                     fields.counts).astype(np.float64)
+    P = grid.shape[1]
+
+    def walk(row, k):
+        for n in range(P):
+            if row[(k + n) % P]:
+                return cost[(k + np.arange(n + 1)) % P].sum()
+        return cost.sum()
+
+    rotated = sum(np.mean([walk(r, k) for k in range(0, P, sub)])
+                  for r in grid)
+    scan = sum(walk(r, 0) for r in grid)
+    got = any_hit_rotation(fields, t(o), t(d), t(limit), NO_SKIP, sub=sub,
+                           log=lambda *a: None)
+    assert got == pytest.approx(rotated / scan, rel=1e-9)
+    assert got > 0.0
