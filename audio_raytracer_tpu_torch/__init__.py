@@ -8,9 +8,15 @@ nvcc at first use.
 
 Ported so far: one forward frame (``models.raytracer.forward``): the
 multi-bounce trace, permeation, the reverb impulse response and the
-reduce to per-target settings; and the differentiable training step
+reduce to per-target settings; the differentiable training step
 (``models.differentiable``): the loudness map, materials training and
-pose and source recovery, with the chord adjoints as CUDA kernels.
+pose and source recovery, with the chord adjoints as CUDA kernels; the
+runtime on one device (``runtime``): the native ``SceneRegistry`` and
+the ``AsyncRaytraceLoop`` that completes frames on CUDA events; the DSP
+chain (``models.spatializer``, ``utils.curves``); and the conformance
+runner (``python -m audio_raytracer_tpu_torch.conformance``), which
+holds the port to its copy of the scalar NumPy oracle
+(``utils.oracle``).
 """
 
 from audio_raytracer_tpu_torch.ops.fibonacci import fibonacci_directions

@@ -105,14 +105,17 @@ def make_forward(cfg: TraceConfig, collect_debug: bool = False,
 
 def random_scene(seed, num_spheres=8, num_aabbs=8, num_obbs=8, num_targets=2,
                  extent=30.0, size_range=(0.5, 3.0),
-                 target_owned_colliders=False, device="cuda") -> Scene:
+                 target_owned_colliders=False, device="cuda",
+                 dtype=torch.float32) -> Scene:
     """Random mixed scene in a cube of +/- extent around the origin, with
     the distributions of the JAX package's ``random_scene``.
 
     ``seed`` is an int or a ``numpy.random.Generator``. The draws come
     from numpy, so the same seed does not give the JAX package's scene
     (its bits come from ``jax.random``); carry a JAX scene across with
-    ``convert.scene_from_arrays`` to trace the very same one.
+    ``convert.scene_from_arrays`` to trace the very same one. ``dtype``
+    (float32 or float64) is the precision of every float field; the
+    draws are the same float32 values either way.
     """
     dev = resolve_device(device)
     rng = seed if isinstance(seed, np.random.Generator) \
@@ -125,23 +128,24 @@ def random_scene(seed, num_spheres=8, num_aabbs=8, num_obbs=8, num_targets=2,
     def umat(n):
         return Materials(
             *(torch.as_tensor(rng.uniform(a, b, (n,)).astype(np.float32),
-                              device=dev)
+                              device=dev).to(dtype)
               for a, b in ((0.0, 0.3), (0.2, 2.0), (0.5, 2.0))))
 
     def usize(shape):
         return rng.uniform(lo, hi, shape).astype(np.float32)
 
     spheres = Spheres.build(upos(num_spheres), usize((num_spheres,)),
-                            material=umat(num_spheres), device=dev)
+                            material=umat(num_spheres), device=dev,
+                            dtype=dtype)
     aabbs = Aabbs.build(upos(num_aabbs), usize((num_aabbs, 3)),
-                        material=umat(num_aabbs), device=dev)
+                        material=umat(num_aabbs), device=dev, dtype=dtype)
     axis = torch.as_tensor(rng.normal(size=(num_obbs, 3)).astype(np.float32))
     angle = torch.as_tensor(
         rng.uniform(0.0, 2.0 * np.pi, (num_obbs,)).astype(np.float32))
     rot = quaternion.from_axis_angle(axis, angle)
     obbs = Obbs.build(upos(num_obbs), usize((num_obbs, 3)),
                       quaternion.inverse(rot),  # stored pre-inverted
-                      material=umat(num_obbs), device=dev)
+                      material=umat(num_obbs), device=dev, dtype=dtype)
     targets = rng.uniform(-extent * 0.8, extent * 0.8,
                           (num_targets, 3)).astype(np.float32)
 
@@ -149,7 +153,8 @@ def random_scene(seed, num_spheres=8, num_aabbs=8, num_obbs=8, num_targets=2,
         # One owning sphere collider around each target exercises the
         # AudioTargetId skip path (AudioCollider.cs:30-37).
         own = Spheres.build(targets, np.full((num_targets,), 0.5),
-                            target_id=np.arange(num_targets), device=dev)
+                            target_id=np.arange(num_targets), device=dev,
+                            dtype=dtype)
 
         def cat(a, b):
             return torch.cat([a, b])
@@ -165,7 +170,8 @@ def random_scene(seed, num_spheres=8, num_aabbs=8, num_obbs=8, num_targets=2,
         )
 
     return Scene(spheres=spheres, aabbs=aabbs, obbs=obbs,
-                 target_positions=torch.as_tensor(targets, device=dev))
+                 target_positions=torch.as_tensor(targets,
+                                                  device=dev).to(dtype))
 
 
 def demo_inputs(cfg: TraceConfig, device="cuda"):

@@ -14,19 +14,22 @@ import torch
 from audio_raytracer_tpu_torch.types import resolve_device
 
 
-def fibonacci_directions(count: int, device="cuda") -> torch.Tensor:
-    """[count, 3] float32 directions on the unit sphere, on ``device``.
+def fibonacci_directions(count: int, device="cuda",
+                         dtype=torch.float32) -> torch.Tensor:
+    """[count, 3] directions on the unit sphere, on ``device``, computed
+    in ``dtype`` (float32, or float64 for the float64 checks).
 
     Keeps the reference's n - 1 denominator, so the first and last rays
     sit at the poles, and ``count=1`` gives NaN (0 / 0), as it does
     there.
     """
     device = resolve_device(device)
-    i = torch.arange(count, dtype=torch.float32, device=device)
-    # float32 arithmetic throughout, as the reference package computes it.
-    five = torch.tensor(5.0, dtype=torch.float32, device=device)
+    i = torch.arange(count, dtype=dtype, device=device)
+    # Arithmetic in ``dtype`` throughout, as the reference package
+    # computes it.
+    five = torch.tensor(5.0, dtype=dtype, device=device)
     phi = math.pi * (3.0 - torch.sqrt(five))
-    denom = torch.tensor(count - 1, dtype=torch.float32, device=device)
+    denom = torch.tensor(count - 1, dtype=dtype, device=device)
     y = 1.0 - (i / denom) * 2.0
     radius = torch.sqrt(torch.clamp(1.0 - y * y, min=0.0))
     theta = phi * i

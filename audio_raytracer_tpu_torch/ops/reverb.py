@@ -19,7 +19,16 @@ from __future__ import annotations
 
 import torch
 
-from audio_raytracer_tpu_torch.types import TraceConfig
+from audio_raytracer_tpu_torch.types import TraceConfig, resolve_device
+
+SPEED_OF_SOUND = 343.0  # m/s at 20C
+
+
+def bin_times(cfg: TraceConfig, device="cuda") -> torch.Tensor:
+    """[n_bins] left edge of each IR time bin, in seconds."""
+    width = cfg.ir_max_distance / SPEED_OF_SOUND / cfg.num_reverb_bins
+    return torch.arange(cfg.num_reverb_bins, dtype=torch.float32,
+                        device=resolve_device(device)) * width
 
 
 def impulse_response(echo_distances: torch.Tensor, cfg: TraceConfig,

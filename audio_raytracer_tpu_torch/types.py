@@ -3,7 +3,10 @@
 The PyTorch counterpart of ``audio_raytracer_tpu/types.py``. Field names,
 defaults and conventions are the same:
 
-- float32 is the canonical precision.
+- float32 is the canonical precision. The builders take ``dtype=`` for
+  float64 scenes, which the dense tier carries through for the float64
+  finite-difference checks (``conformance.py`` config 4), as the JAX
+  builders' ``dtype=`` does.
 - Quaternions are xyzw. OBBs store the INVERSE rotation, as the
   reference bakes it (Audio/Colliders/AudioOBBCollider.cs:59).
 - ``target_id`` is int32, -1 = "not owned by any audio target".
@@ -58,8 +61,8 @@ def _rows(x) -> int:
     return int(np.prod(np.shape(x))) // 3
 
 
-def _f32(x, n, width, device):
-    t = to_tensor(x, torch.float32, device)
+def _float(x, n, width, device, dtype):
+    t = to_tensor(x, dtype, device)
     return t.reshape(n, width) if width else t.reshape(n)
 
 
@@ -91,12 +94,13 @@ class Materials:
     echo: Tensor
 
     @staticmethod
-    def default(n: int, device="cuda") -> "Materials":
+    def default(n: int, device="cuda",
+                dtype=torch.float32) -> "Materials":
         device = resolve_device(device)
         return Materials(
-            absorption=torch.zeros((n,), device=device),
-            density=torch.ones((n,), device=device),
-            echo=torch.ones((n,), device=device),
+            absorption=torch.zeros((n,), dtype=dtype, device=device),
+            density=torch.ones((n,), dtype=dtype, device=device),
+            echo=torch.ones((n,), dtype=dtype, device=device),
         )
 
     @property
@@ -120,13 +124,14 @@ class Spheres:
 
     @staticmethod
     def build(center, radius, material=None, target_id=None, active=None,
-              device="cuda") -> "Spheres":
+              device="cuda", dtype=torch.float32) -> "Spheres":
         device = resolve_device(device)
         n = _rows(center)
         return Spheres(
-            _f32(center, n, 3, device), _f32(radius, n, 0, device),
+            _float(center, n, 3, device, dtype),
+            _float(radius, n, 0, device, dtype),
             material if material is not None
-            else Materials.default(n, device),
+            else Materials.default(n, device, dtype),
             _ids(target_id, n, device), _mask(active, n, device))
 
     @property
@@ -150,13 +155,14 @@ class Aabbs:
 
     @staticmethod
     def build(center, half_extents, material=None, target_id=None,
-              active=None, device="cuda") -> "Aabbs":
+              active=None, device="cuda", dtype=torch.float32) -> "Aabbs":
         device = resolve_device(device)
         n = _rows(center)
         return Aabbs(
-            _f32(center, n, 3, device), _f32(half_extents, n, 3, device),
+            _float(center, n, 3, device, dtype),
+            _float(half_extents, n, 3, device, dtype),
             material if material is not None
-            else Materials.default(n, device),
+            else Materials.default(n, device, dtype),
             _ids(target_id, n, device), _mask(active, n, device))
 
     @property
@@ -183,14 +189,15 @@ class Obbs:
 
     @staticmethod
     def build(center, half_extents, inv_rot, material=None, target_id=None,
-              active=None, device="cuda") -> "Obbs":
+              active=None, device="cuda", dtype=torch.float32) -> "Obbs":
         device = resolve_device(device)
         n = _rows(center)
         return Obbs(
-            _f32(center, n, 3, device), _f32(half_extents, n, 3, device),
-            _f32(inv_rot, n, 4, device),
+            _float(center, n, 3, device, dtype),
+            _float(half_extents, n, 3, device, dtype),
+            _float(inv_rot, n, 4, device, dtype),
             material if material is not None
-            else Materials.default(n, device),
+            else Materials.default(n, device, dtype),
             _ids(target_id, n, device), _mask(active, n, device))
 
     @property
@@ -230,7 +237,7 @@ class Scene:
             spheres if spheres is not None else Spheres.empty(device),
             aabbs if aabbs is not None else Aabbs.empty(device),
             obbs if obbs is not None else Obbs.empty(device),
-            _f32(tp, n_t, 3, device))
+            _float(tp, n_t, 3, device, torch.float32))
 
     def replace(self, **kwargs) -> "Scene":
         return dataclasses.replace(self, **kwargs)
