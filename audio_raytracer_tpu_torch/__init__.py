@@ -13,10 +13,13 @@ reduce to per-target settings; the differentiable training step
 pose and source recovery, with the chord adjoints as CUDA kernels; the
 runtime on one device (``runtime``): the native ``SceneRegistry`` and
 the ``AsyncRaytraceLoop`` that completes frames on CUDA events; the DSP
-chain (``models.spatializer``, ``utils.curves``); and the conformance
+chain (``models.spatializer``, ``utils.curves``); the conformance
 runner (``python -m audio_raytracer_tpu_torch.conformance``), which
 holds the port to its copy of the scalar NumPy oracle
-(``utils.oracle``).
+(``utils.oracle``); and the demo layer (``demo``: scene JSON and its
+schema, the scene player ``demo.scene_player`` with its WAV render, the
+material calibration and pose-recovery CLI ``demo.train_materials``,
+the visualizer), with ``utils.checkpoint`` and ``utils.profiling``.
 """
 
 from audio_raytracer_tpu_torch.ops.fibonacci import fibonacci_directions

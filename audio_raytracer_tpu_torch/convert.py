@@ -6,7 +6,9 @@ leaves the caller has turned into numpy arrays — for a JAX scene,
 ``jax.tree.map(np.asarray, scene)`` — and builds the PyTorch package's
 ``Scene`` from them; ``params_from_arrays`` and ``loudness_from_arrays``
 do the same for the JAX ``SceneParams`` and ``Loudness``, so both
-packages can train the same parameters toward the same target. Only
+packages can train the same parameters toward the same target;
+``adam_from_arrays`` carries optax adam's moments and count into the
+port's ``torch.optim.Adam``, so a run started in JAX continues here. Only
 attribute names are read, so any object with the JAX structure works,
 and nothing of JAX is imported.
 """
@@ -78,3 +80,33 @@ def loudness_from_arrays(loudness, device="cuda") -> Loudness:
           for k in ("muffle", "permeation", "reverb_energy")),
         reverb_ir=None if ir is None else to_tensor(ir, torch.float32,
                                                     device))
+
+
+def adam_from_arrays(mu, nu, count, optimizer):
+    """Load optax ``adam``'s ``ScaleByAdamState`` into ``optimizer``, a
+    ``torch.optim.Adam`` built over the same parameters (the step
+    factories' ``init(params)``), and return it.
+
+    ``mu`` and ``nu`` are the first and second moments as sequences of
+    numpy arrays in the order of the parameters' leaves
+    (``SceneParams.leaves()`` or ``PoseParams.leaves()``, which is the
+    order of ``jax.tree.leaves`` of the JAX structure); ``count`` is the
+    number of steps taken. They become each parameter's ``exp_avg``,
+    ``exp_avg_sq`` and ``step``, on the parameter's device.
+    """
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    if not len(mu) == len(nu) == len(params):
+        raise ValueError(f"{len(mu)} first and {len(nu)} second moments "
+                         f"for {len(params)} parameters")
+    for p, m, v in zip(params, mu, nu):
+        exp_avg = to_tensor(m, p.dtype, p.device)
+        exp_avg_sq = to_tensor(v, p.dtype, p.device)
+        if exp_avg.shape != p.shape or exp_avg_sq.shape != p.shape:
+            raise ValueError(f"moments of shape {tuple(exp_avg.shape)} and "
+                             f"{tuple(exp_avg_sq.shape)} for a parameter of "
+                             f"shape {tuple(p.shape)}")
+        # Adam keeps its step count as a float32 scalar on the CPU.
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq}
+    return optimizer

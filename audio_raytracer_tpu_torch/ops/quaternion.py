@@ -45,6 +45,21 @@ def inverse(q: Tensor) -> Tensor:
     return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
 
 
+def multiply(a: Tensor, b: Tensor) -> Tensor:
+    """Hamilton product a*b (xyzw), broadcasting over leading dims."""
+    ax, ay, az, aw = a.unbind(-1)
+    bx, by, bz, bw = b.unbind(-1)
+    return torch.stack(
+        [
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+            aw * bw - ax * bx - ay * by - az * bz,
+        ],
+        dim=-1,
+    )
+
+
 def from_axis_angle(axis: Tensor, angle: Tensor) -> Tensor:
     """Unit quaternion (xyzw) for a rotation of ``angle`` radians about
     ``axis``."""
@@ -54,5 +69,42 @@ def from_axis_angle(axis: Tensor, angle: Tensor) -> Tensor:
     return torch.cat([axis * torch.sin(half), torch.cos(half)], dim=-1)
 
 
+def from_euler_zxy(euler_rad) -> Tensor:
+    """Unity-convention euler angles (ZXY intrinsic, radians, xyz
+    component order) as a quaternion: Unity's ``quaternion.Euler``
+    default rotation order, used when authoring OBB rotation offsets."""
+    e = torch.as_tensor(euler_rad, dtype=torch.float32) * 0.5
+    sx, cx = torch.sin(e[..., 0]), torch.cos(e[..., 0])
+    sy, cy = torch.sin(e[..., 1]), torch.cos(e[..., 1])
+    sz, cz = torch.sin(e[..., 2]), torch.cos(e[..., 2])
+    # ZXY order: q = qy * qx * qz
+    return torch.stack(
+        [
+            sx * cy * cz + sy * sz * cx,
+            sy * cx * cz - sx * sz * cy,
+            sz * cx * cy - sx * sy * cz,
+            cx * cy * cz + sy * sz * sx,
+        ],
+        dim=-1,
+    )
+
+
 def normalize(q: Tensor) -> Tensor:
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def pack_xyz(q: Tensor) -> Tensor:
+    """A unit quaternion stored as xyz only [..., 3], w reconstructed on
+    unpack: the reference's halfQuaternion
+    (DataTypes/halfQuaternion.cs:7-63). w = sqrt(1 - |xyz|^2) once its
+    sign is made positive, so where w < 0 the equivalent -q is stored."""
+    sign = torch.where(q[..., 3:4] < 0.0, -1.0, 1.0)
+    return q[..., :3] * sign
+
+
+def unpack_xyz(xyz: Tensor) -> Tensor:
+    """Inverse of ``pack_xyz``: [..., 3] -> [..., 4] with
+    w = sqrt(1 - |xyz|^2)."""
+    w2 = torch.clamp(1.0 - torch.sum(xyz * xyz, dim=-1, keepdim=True),
+                     min=0.0)
+    return torch.cat([xyz, torch.sqrt(w2)], dim=-1)

@@ -13,7 +13,6 @@ with ``query()``: no host thread waits on the device.
 
 from __future__ import annotations
 
-import dataclasses
 import time
 
 import torch
@@ -24,16 +23,8 @@ from audio_raytracer_tpu_torch.types import (
     TargetSettings,
     TraceConfig,
     resolve_device,
+    tensors_of,
 )
-
-
-def _tensors(obj):
-    """Every tensor of a (nested) dataclass of tensors."""
-    if isinstance(obj, torch.Tensor):
-        yield obj
-    elif dataclasses.is_dataclass(obj):
-        for f in dataclasses.fields(obj):
-            yield from _tensors(getattr(obj, f.name))
 
 
 class AsyncRaytraceLoop:
@@ -56,15 +47,20 @@ class AsyncRaytraceLoop:
     latest snapshot (publish and upload). ``frames_dispatched`` and
     ``frames_harvested`` count frames.
 
+    ``backend``: "kernel" (the CUDA kernels; their plain versions on the
+    CPU), "dense" (plain [rays, prims] grids) or an engine object with
+    the backend protocol, used as it is for every frame.
+
     ``device="cpu"`` runs every frame synchronously inside ``tick`` (a
     frame is always done when probed). The meshed mode of the JAX loop
     waits for the distribution slice of the port.
     """
 
-    def __init__(self, registry, cfg: TraceConfig,
+    def __init__(self, registry, cfg: TraceConfig, backend="kernel",
                  compute_async: bool = True, device="cuda"):
         self.registry = registry
         self.compute_async = compute_async
+        self._backend = backend
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
@@ -113,7 +109,7 @@ class AsyncRaytraceLoop:
             # the caller's: keep their memory from reuse until the
             # caller's stream is past its work at the time they are freed.
             consumer = torch.cuda.current_stream(self.device)
-            for t in _tensors(self._in_flight[0]):
+            for t in tensors_of(self._in_flight[0]):
                 t.record_stream(consumer)
             if self._in_flight[1] is not None:
                 self._in_flight[1].record_stream(consumer)
@@ -139,7 +135,7 @@ class AsyncRaytraceLoop:
         # Memory the caller's stream allocated and this frame reads: not
         # to be reused while the frame runs, even if a later snapshot or
         # reconfigure frees it.
-        for t in (origin, self._directions, *_tensors(scene)):
+        for t in (origin, self._directions, *tensors_of(scene)):
             t.record_stream(stream)
         start = torch.cuda.Event(enable_timing=True)
         done = torch.cuda.Event(enable_timing=True)
@@ -152,7 +148,7 @@ class AsyncRaytraceLoop:
     @torch.no_grad()
     def _frame(self, origin, scene):
         if self._engine is None:
-            self._engine = make_backend(scene, "kernel")
+            self._engine = make_backend(scene, self._backend)
         result, settings = forward(origin, self._directions, scene,
                                    self.cfg, backend=self._engine,
                                    device=self.device)

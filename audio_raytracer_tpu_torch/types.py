@@ -50,6 +50,15 @@ def check_device(dev: torch.device, **tensors) -> None:
             raise ValueError(f"{name} is on {x.device}, expected {dev}")
 
 
+def tensors_of(obj):
+    """Every tensor of a tensor or a (nested) dataclass of tensors."""
+    if isinstance(obj, Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from tensors_of(getattr(obj, f.name))
+
+
 def to_tensor(x, dtype, device):
     if not isinstance(x, Tensor):
         x = torch.from_numpy(np.array(x))
