@@ -7,19 +7,145 @@
 // (Jobs/AudioPermeationJobBatched.cs:225-328). Spheres use the half-b
 // quadratic (|d| = 1); inactive spheres carry r2 = -1e30 and never hit;
 // inactive boxes are excluded by their miss term (miss != 0). Sums
-// accumulate in float32, in scan order.
-//
-// Design: one thread per ray, S compile-time sets held in registers,
-// primitive rows staged per block in shared memory; box tests share the
-// per-primitive (bound - origin) terms across sets.
+// accumulate in float32.
 //
 // Bound on the H100: float32 operations outside the tensor cores, per
 // (ray, primitive): sphere 9 + 18 S, AABB 7 + 23 S, OBB 28 + 44 S
-// (ops/cuda/fused.py::CHORD_OPS), against 67 TFLOP/s. On the forward
-// frame it runs on one ray per accumulation batch: there a single thread
-// walks every primitive, and latency, not work, sets its time.
+// (ops/cuda/fused.py::CHORD_OPS), against 67 TFLOP/s. Both launch shapes
+// below do exactly this arithmetic per (ray, primitive, set), through the
+// same row functions; they differ in who walks which rows and in the
+// order of the sums.
+//
+// The host picks the shape (ops/cuda/fused.py::chord_splits) as (G, K):
+// G rays per block of BLOCK threads, K blocks per group of G rays.
+//
+// Many rays, (G, K) = (BLOCK, 1): multi_chord_kernel. One thread per ray,
+// S compile-time sets in registers, primitive rows staged per block in
+// TILE-row tiles of shared memory; box tests share the per-primitive
+// (bound - origin) terms across sets. Each ray sums in scan order. The
+// training step's 1,048,576 rays take it.
+//
+// Few rays: multi_chord_split_kernel. At one ray (the forward frame's
+// permeation batch) the kernel above runs one thread on one SM and walks
+// every primitive in turn, so the walk's latency sets its time. Here the
+// scan-order rows (spheres, then AABBs, then OBBs) are cut into K
+// contiguous chunks, one per block of a thread-block cluster; a block
+// holds G rays x L = BLOCK / G lanes; the block stages its chunk's rows
+// in TILE-row tiles of shared memory, as the kernel above does, and lane
+// l of a ray takes rows l, l + L, ... of each tile. The sums run
+// in a fixed order: a warp-shuffle tree over a ray's lanes, the ray's
+// warps in order through shared memory, then block rank 0 adds the
+// cluster's blocks in rank order through distributed shared memory. Two
+// launches give the same bits; there are no atomics and no global
+// scratch, so two streams may run it at once.
+
+#include <cooperative_groups.h>
 
 #include "fields.cuh"
+
+namespace cg = cooperative_groups;
+
+// Most blocks in one cluster (non-portable; 8 is portable).
+#define MAX_CLUSTER 16
+
+// One ray's S sets: the shared origin, each set's direction, inverse
+// direction and skip target.
+template <int S>
+struct RaySets {
+  float ox, oy, oz;
+  float dx[S], dy[S], dz[S], ix[S], iy[S], iz[S];
+  int skip[S];
+
+  __device__ __forceinline__ RaySets(const float* __restrict__ o,
+                                     const float* __restrict__ dirs, int R,
+                                     int r, bool live, const Skips& skips) {
+    ox = oy = oz = 0.f;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      dx[s] = dy[s] = dz[s] = 0.f;
+      skip[s] = skips.v[s];
+    }
+    if (live) {
+      ox = o[3 * r]; oy = o[3 * r + 1]; oz = o[3 * r + 2];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const size_t k = 3 * ((size_t)s * R + r);
+        dx[s] = dirs[k]; dy[s] = dirs[k + 1]; dz[s] = dirs[k + 2];
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      ix[s] = safe_inv(dx[s]); iy[s] = safe_inv(dy[s]);
+      iz[s] = safe_inv(dz[s]);
+    }
+  }
+};
+
+// Add one sphere row p to acc.
+template <int S>
+__device__ __forceinline__ void sphere_row(const float* p,
+                                           const RaySets<S>& q,
+                                           float (&acc)[S]) {
+  const int tgt = as_id(p[4]);
+  const float dens = p[5];
+  float ocx = q.ox - p[0], ocy = q.oy - p[1], ocz = q.oz - p[2];
+  float cc = (ocx * ocx + ocy * ocy + ocz * ocz) - p[3];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    float b = ocx * q.dx[s] + ocy * q.dy[s] + ocz * q.dz[s];
+    float disc = b * b - cc;
+    bool hit = disc >= 0.0f;
+    float sq = sqrtf(hit ? disc : 1.0f);
+    float t_exit = -b + sq;
+    float enter = fmaxf(-b - sq, 0.0f);
+    float chord = fmaxf(0.0f, t_exit - enter);
+    bool valid = hit && (t_exit >= 0.0f) && tgt != q.skip[s];
+    acc[s] = acc[s] + (valid ? chord : 0.0f) * dens;
+  }
+}
+
+// Add one AABB row p to acc.
+template <int S>
+__device__ __forceinline__ void aabb_row(const float* p, const RaySets<S>& q,
+                                         float (&acc)[S]) {
+  const int tgt = as_id(p[7]);
+  const float dens = p[8];
+  const bool ok = p[6] == 0.0f;
+  float mnx = p[0] - q.ox, mny = p[1] - q.oy, mnz = p[2] - q.oz;
+  float mxx = p[3] - q.ox, mxy = p[4] - q.oy, mxz = p[5] - q.oz;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    float tn, tf;
+    slab(mnx, mny, mnz, mxx, mxy, mxz, q.ix[s], q.iy[s], q.iz[s], tn, tf);
+    float chord = fmaxf(0.0f, tf - fmaxf(tn, 0.0f));
+    bool valid = (tn <= tf) && (tf >= 0.0f) && tgt != q.skip[s] && ok;
+    acc[s] = acc[s] + (valid ? chord : 0.0f) * dens;
+  }
+}
+
+// Add one OBB row p to acc.
+template <int S>
+__device__ __forceinline__ void obb_row(const float* p, const RaySets<S>& q,
+                                        float (&acc)[S]) {
+  const int tgt = as_id(p[16]);
+  const float dens = p[17];
+  const bool ok = p[15] == 0.0f;
+  float lox, loy, loz;
+  mat_rotate(p + 6, q.ox - p[0], q.oy - p[1], q.oz - p[2], lox, loy, loz);
+  float mnx = -p[3] - lox, mny = -p[4] - loy, mnz = -p[5] - loz;
+  float mxx = p[3] - lox, mxy = p[4] - loy, mxz = p[5] - loz;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    float ldx, ldy, ldz;
+    mat_rotate(p + 6, q.dx[s], q.dy[s], q.dz[s], ldx, ldy, ldz);
+    float tn, tf;
+    slab(mnx, mny, mnz, mxx, mxy, mxz, safe_inv(ldx), safe_inv(ldy),
+         safe_inv(ldz), tn, tf);
+    float chord = fmaxf(0.0f, tf - fmaxf(tn, 0.0f));
+    bool valid = (tn <= tf) && (tf >= 0.0f) && tgt != q.skip[s] && ok;
+    acc[s] = acc[s] + (valid ? chord : 0.0f) * dens;
+  }
+}
 
 template <int S>
 __global__ void __launch_bounds__(BLOCK)
@@ -31,26 +157,10 @@ multi_chord_kernel(const float* __restrict__ o, const float* __restrict__ dirs,
   __shared__ __align__(16) float tile[TILE * OBB_W];
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = r < R;
-
-  float ox = 0.f, oy = 0.f, oz = 0.f;
-  float dx[S], dy[S], dz[S], ix[S], iy[S], iz[S], acc[S];
+  const RaySets<S> q(o, dirs, R, r, live, skips);
+  float acc[S];
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    dx[s] = dy[s] = dz[s] = 0.f;
-    acc[s] = 0.f;
-  }
-  if (live) {
-    ox = o[3 * r]; oy = o[3 * r + 1]; oz = o[3 * r + 2];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const size_t k = 3 * ((size_t)s * R + r);
-      dx[s] = dirs[k]; dy[s] = dirs[k + 1]; dz[s] = dirs[k + 2];
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    ix[s] = safe_inv(dx[s]); iy[s] = safe_inv(dy[s]); iz[s] = safe_inv(dz[s]);
-  }
+  for (int s = 0; s < S; ++s) acc[s] = 0.f;
 
   for (int base = 0; base < ns; base += TILE) {
     const int n = min(TILE, ns - base);
@@ -58,25 +168,7 @@ multi_chord_kernel(const float* __restrict__ o, const float* __restrict__ dirs,
     load_tile(tile, sph, base, n, SPH_W);
     __syncthreads();
     if (live) {
-      for (int j = 0; j < n; ++j) {
-        const float* p = tile + j * SPH_W;
-        const int tgt = as_id(p[4]);
-        const float dens = p[5];
-        float ocx = ox - p[0], ocy = oy - p[1], ocz = oz - p[2];
-        float cc = (ocx * ocx + ocy * ocy + ocz * ocz) - p[3];
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          float b = ocx * dx[s] + ocy * dy[s] + ocz * dz[s];
-          float disc = b * b - cc;
-          bool hit = disc >= 0.0f;
-          float sq = sqrtf(hit ? disc : 1.0f);
-          float t_exit = -b + sq;
-          float enter = fmaxf(-b - sq, 0.0f);
-          float chord = fmaxf(0.0f, t_exit - enter);
-          bool valid = hit && (t_exit >= 0.0f) && tgt != skips.v[s];
-          acc[s] = acc[s] + (valid ? chord : 0.0f) * dens;
-        }
-      }
+      for (int j = 0; j < n; ++j) sphere_row(tile + j * SPH_W, q, acc);
     }
   }
   for (int base = 0; base < na; base += TILE) {
@@ -85,22 +177,7 @@ multi_chord_kernel(const float* __restrict__ o, const float* __restrict__ dirs,
     load_tile(tile, aabb, base, n, AABB_W);
     __syncthreads();
     if (live) {
-      for (int j = 0; j < n; ++j) {
-        const float* p = tile + j * AABB_W;
-        const int tgt = as_id(p[7]);
-        const float dens = p[8];
-        const bool ok = p[6] == 0.0f;
-        float mnx = p[0] - ox, mny = p[1] - oy, mnz = p[2] - oz;
-        float mxx = p[3] - ox, mxy = p[4] - oy, mxz = p[5] - oz;
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          float tn, tf;
-          slab(mnx, mny, mnz, mxx, mxy, mxz, ix[s], iy[s], iz[s], tn, tf);
-          float chord = fmaxf(0.0f, tf - fmaxf(tn, 0.0f));
-          bool valid = (tn <= tf) && (tf >= 0.0f) && tgt != skips.v[s] && ok;
-          acc[s] = acc[s] + (valid ? chord : 0.0f) * dens;
-        }
-      }
+      for (int j = 0; j < n; ++j) aabb_row(tile + j * AABB_W, q, acc);
     }
   }
   for (int base = 0; base < no; base += TILE) {
@@ -109,27 +186,7 @@ multi_chord_kernel(const float* __restrict__ o, const float* __restrict__ dirs,
     load_tile(tile, obb, base, n, OBB_W);
     __syncthreads();
     if (live) {
-      for (int j = 0; j < n; ++j) {
-        const float* p = tile + j * OBB_W;
-        const int tgt = as_id(p[16]);
-        const float dens = p[17];
-        const bool ok = p[15] == 0.0f;
-        float lox, loy, loz;
-        mat_rotate(p + 6, ox - p[0], oy - p[1], oz - p[2], lox, loy, loz);
-        float mnx = -p[3] - lox, mny = -p[4] - loy, mnz = -p[5] - loz;
-        float mxx = p[3] - lox, mxy = p[4] - loy, mxz = p[5] - loz;
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          float ldx, ldy, ldz;
-          mat_rotate(p + 6, dx[s], dy[s], dz[s], ldx, ldy, ldz);
-          float tn, tf;
-          slab(mnx, mny, mnz, mxx, mxy, mxz, safe_inv(ldx), safe_inv(ldy),
-               safe_inv(ldz), tn, tf);
-          float chord = fmaxf(0.0f, tf - fmaxf(tn, 0.0f));
-          bool valid = (tn <= tf) && (tf >= 0.0f) && tgt != skips.v[s] && ok;
-          acc[s] = acc[s] + (valid ? chord : 0.0f) * dens;
-        }
-      }
+      for (int j = 0; j < n; ++j) obb_row(tile + j * OBB_W, q, acc);
     }
   }
   if (live) {
@@ -138,26 +195,176 @@ multi_chord_kernel(const float* __restrict__ o, const float* __restrict__ dirs,
   }
 }
 
+// Rows [a, b) of one type's table of width W: staged TILE rows at a time
+// in shared memory, lane l of a ray taking rows l, l + L, ... of each
+// tile. Every thread of the block calls it (a and b are the block's).
+template <int W, class Row>
+__device__ __forceinline__ void walk_rows(float* tile, const float* tab,
+                                          int a, int b, int lane, int L,
+                                          bool live, Row&& row) {
+  for (int base = a; base < b; base += TILE) {
+    const int n = min(TILE, b - base);
+    __syncthreads();
+    load_tile(tile, tab, base, n, W);
+    __syncthreads();
+    if (live) {
+      for (int j = lane; j < n; j += L) row(tile + j * W);
+    }
+  }
+}
+
+// Launched in clusters of K blocks along x: the blocks of cluster c hold
+// rays c G .. c G + G - 1, block rank k the rows
+// [k rows / K, (k + 1) rows / K) of the scan order (rows = ns + na + no;
+// ops/cuda/fused.py::chord_chunks).
+template <int S>
+__global__ void __launch_bounds__(BLOCK)
+multi_chord_split_kernel(const float* __restrict__ o,
+                         const float* __restrict__ dirs, int R, Skips skips,
+                         const float* __restrict__ sph, int ns,
+                         const float* __restrict__ aabb, int na,
+                         const float* __restrict__ obb, int no, int G, int K,
+                         float* __restrict__ out) {
+  __shared__ __align__(16) float tile[TILE * OBB_W];
+  __shared__ float warp_part[BLOCK / 32][S];
+  __shared__ float ray_part[BLOCK][S];
+  const int L = BLOCK / G;
+  const int g = threadIdx.x / L, lane = threadIdx.x % L;
+  const int rank = blockIdx.x % K;
+  const int r = (blockIdx.x / K) * G + g;
+  const bool live = r < R;
+  const RaySets<S> q(o, dirs, R, r, live, skips);
+  float acc[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) acc[s] = 0.f;
+
+  const int rows = ns + na + no;
+  const int lo = (int)((long long)rank * rows / K);
+  const int hi = (int)((long long)(rank + 1) * rows / K);
+  walk_rows<SPH_W>(tile, sph, max(lo, 0), min(hi, ns), lane, L, live,
+                   [&](const float* p) { sphere_row(p, q, acc); });
+  walk_rows<AABB_W>(tile, aabb, max(lo, ns) - ns, min(hi, ns + na) - ns,
+                    lane, L, live,
+                    [&](const float* p) { aabb_row(p, q, acc); });
+  walk_rows<OBB_W>(tile, obb, max(lo, ns + na) - ns - na, hi - ns - na,
+                   lane, L, live,
+                   [&](const float* p) { obb_row(p, q, acc); });
+
+  // A ray's lanes within a warp: a shuffle tree, the sum in the ray's
+  // first lane (of each warp, where a ray spans several).
+  const int width = min(L, 32);
+  for (int off = width / 2; off > 0; off >>= 1) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      acc[s] += __shfl_down_sync(0xffffffffu, acc[s], off, width);
+    }
+  }
+  // A ray's warps, in order.
+  if (L > 32) {
+    const int warp = threadIdx.x / 32, per_ray = L / 32;
+    if (threadIdx.x % 32 == 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) warp_part[warp][s] = acc[s];
+    }
+    __syncthreads();
+    if (lane == 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        acc[s] = warp_part[g * per_ray][s];
+        for (int w = 1; w < per_ray; ++w) {
+          acc[s] += warp_part[g * per_ray + w][s];
+        }
+      }
+    }
+  }
+  if (K == 1) {
+    if (lane == 0 && live) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) out[(size_t)r * S + s] = acc[s];
+    }
+    return;
+  }
+  // The cluster's blocks, in rank order, by block rank 0; the second sync
+  // keeps every block's shared memory alive until rank 0 has read it.
+  cg::cluster_group cluster = cg::this_cluster();
+  if (lane == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) ray_part[g][s] = acc[s];
+  }
+  cluster.sync();
+  if (rank == 0 && lane == 0 && live) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      float t = ray_part[g][s];
+      for (int k = 1; k < K; ++k) {
+        t += cluster.map_shared_rank(&ray_part[g][s], k)[0];
+      }
+      out[(size_t)r * S + s] = t;
+    }
+  }
+  cluster.sync();
+}
+
+template <int S>
+static cudaError_t launch(const float* o, const float* dirs, int R,
+                          const Skips& sk, const float* sph, int ns,
+                          const float* aabb, int na, const float* obb, int no,
+                          int G, int K, float* out, cudaStream_t stream) {
+  if (G == BLOCK && K == 1) {
+    multi_chord_kernel<S><<<(R + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
+        o, dirs, R, sk, sph, ns, aabb, na, obb, no, out);
+    return cudaGetLastError();
+  }
+  const long long blocks = (long long)((R + G - 1) / G) * K;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto kernel = multi_chord_split_kernel<S>;
+  if (K > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = K;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(BLOCK);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, o, dirs, R, sk, sph, ns, aabb, na,
+                            obb, no, G, K, out);
+}
+
 #define LAUNCH_SETS(N)                                                   \
   case N:                                                                \
-    multi_chord_kernel<N><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(     \
-        o, dirs, R, sk, sph, ns, aabb, na, obb, no, out);                \
+    err = launch<N>(o, dirs, R, sk, sph, ns, aabb, na, obb, no, G, K,    \
+                    out, (cudaStream_t)stream);                          \
     break;
 
+// out [R, S]; dirs [S, R, 3]. (G, K): G rays per block, a power of two
+// up to BLOCK, and K blocks per cluster, 1 to MAX_CLUSTER; (BLOCK, 1) is
+// one thread per ray (multi_chord_kernel).
 extern "C" int multi_chord(const float* o, const float* dirs, int R, int S,
                            const int* skips, const float* sph, int ns,
                            const float* aabb, int na, const float* obb,
-                           int no, float* out, void* stream) {
-  if (S < 1 || S > MAX_SETS) return (int)cudaErrorInvalidValue;
+                           int no, int G, int K, float* out, void* stream) {
+  if (S < 1 || S > MAX_SETS || G < 1 || G > BLOCK || BLOCK % G || K < 1 ||
+      K > MAX_CLUSTER) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (R == 0) RETURN_LAST_ERROR;
   Skips sk;
   for (int s = 0; s < MAX_SETS; ++s) sk.v[s] = s < S ? skips[s] : 0;
-  const int grid = (R + BLOCK - 1) / BLOCK;
+  cudaError_t err = cudaSuccess;
   switch (S) {
     LAUNCH_SETS(1) LAUNCH_SETS(2) LAUNCH_SETS(3) LAUNCH_SETS(4)
     LAUNCH_SETS(5) LAUNCH_SETS(6) LAUNCH_SETS(7) LAUNCH_SETS(8)
     LAUNCH_SETS(9) LAUNCH_SETS(10) LAUNCH_SETS(11) LAUNCH_SETS(12)
     LAUNCH_SETS(13) LAUNCH_SETS(14) LAUNCH_SETS(15) LAUNCH_SETS(16)
   }
-  RETURN_LAST_ERROR;
+  return (int)err;
 }

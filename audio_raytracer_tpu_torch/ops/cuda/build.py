@@ -131,7 +131,8 @@ _SIGNATURES = {
                           _P, _I, _I, _P, _P],
         "multi_any_hit_occupancy": [_I, _P]},
     "multi_chord": {
-        "multi_chord": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P]},
+        "multi_chord": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I,
+                        _P, _P]},
     "multi_chord_dens_bwd": {
         "multi_chord_dens_bwd": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
                                  _P, _P, _P, _P],

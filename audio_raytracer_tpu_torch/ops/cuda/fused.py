@@ -247,28 +247,84 @@ def multi_chord_plain(fields: Fields, o: Tensor, dirs, skips) -> Tensor:
     return out
 
 
+# B3's launch shape (csrc/multi_chord.cu): blocks of BLOCK threads, and at
+# most MAX_CLUSTER blocks of one cluster split one ray group's rows.
+BLOCK = 256
+MAX_CLUSTER = 16
+# One thread per ray once the ray blocks alone put FILL blocks on every
+# SM; below that, lanes enough for SPLIT_FILL blocks' worth of threads on
+# every SM, and at least two. On an H100 (132 SMs) two lanes a ray still
+# matched one thread per ray at 131,072 rays (512 blocks) and lost at
+# 262,144; and from 64 to 4,096 rays lanes for two blocks an SM beat lanes
+# for four by up to 40 % (chip_smoke.py phase 3c).
+FILL = 4
+SPLIT_FILL = 2
+
+
+def chord_splits(R: int, rows: int, sms: int) -> tuple[int, int]:
+    """B3's launch shape for R rays over ``rows`` scan-order primitive rows
+    on a card of ``sms`` SMs: (G, K), G rays per block (each walked by
+    BLOCK // G lanes) and K blocks per group of G rays, block k walking
+    chunk k of ``chord_chunks(rows, K)``.
+
+    (BLOCK, 1), one thread per ray over every row, once ceil(R / BLOCK)
+    blocks fill the SMs FILL times over. Below that, each ray gets the
+    lanes that would give SPLIT_FILL x sms blocks' worth of threads, at
+    least two, but no more than one lane per row and MAX_CLUSTER blocks:
+    up to BLOCK lanes in one block (a power of two, rounded up), else
+    K > 1 blocks of BLOCK lanes (G = 1)."""
+    if R < 1 or rows < 1 or -(-R // BLOCK) >= FILL * sms:
+        return BLOCK, 1
+    lanes = min(max(2, -(-SPLIT_FILL * sms * BLOCK // R)), rows,
+                MAX_CLUSTER * BLOCK)
+    if lanes <= BLOCK:
+        return BLOCK // (1 << (lanes - 1).bit_length()), 1
+    return 1, -(-lanes // BLOCK)
+
+
+def chord_chunks(rows: int, K: int) -> list[tuple[int, int]]:
+    """The scan-order rows [lo, hi) of each block rank of a B3 cluster of
+    K blocks (csrc/multi_chord.cu::multi_chord_split_kernel)."""
+    return [(k * rows // K, (k + 1) * rows // K) for k in range(K)]
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of the card ``device`` lies on."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_multi_chord(lib, fields: Fields, o: Tensor, stacked: Tensor,
+                       skips, out: Tensor, splits) -> None:
+    """One launch of B3's kernel for the sets of ``stacked`` [S, R, 3]
+    (S <= MAX_SETS) into ``out`` [R, S], in the launch shape ``splits`` =
+    (G, K) (``chord_splits``). Counts no launch; B7 launches it too."""
+    dev = o.device
+    keep, skips_ptr = skips_arg(skips)
+    err = lib.multi_chord(o.data_ptr(), stacked.data_ptr(), o.shape[0],
+                          stacked.shape[0], skips_ptr,
+                          *table_args(fields, dev), *splits, out.data_ptr(),
+                          stream_of(dev))
+    build.check("multi_chord", err)
+
+
 def run_multi_chord(fields: Fields, o: Tensor, dirs, skips) -> Tensor:
     """B3: permeation chord x density sums along the unbounded rays of S
     target sets sharing the origins o [R, 3]. dirs: S normalized [R, 3];
     skips: S target ids. Returns [R, S] float32. One launch per group of
-    at most MAX_SETS sets."""
+    at most MAX_SETS sets, each in the shape ``chord_splits`` picks."""
     if on_cpu(o):
         return multi_chord_plain(fields, o, dirs, skips)
     lib = build.load("multi_chord")
     dev = o.device
     R, S = o.shape[0], len(dirs)
     check_operands(dev, o)
+    splits = chord_splits(R, fields.total, sm_count(dev))
     parts = []
     for g in set_groups(S):
         stacked = _stack_dirs(dirs[g])
         check_operands(dev, stacked)
         out = torch.empty((R, g.stop - g.start), device=dev)
-        keep, skips_ptr = skips_arg(skips[g])
-        err = lib.multi_chord(o.data_ptr(), stacked.data_ptr(), R,
-                              g.stop - g.start, skips_ptr,
-                              *table_args(fields, dev), out.data_ptr(),
-                              stream_of(dev))
-        build.check("multi_chord", err)
+        launch_multi_chord(lib, fields, o, stacked, skips[g], out, splits)
         if R:
             run_multi_chord.launches += 1
         parts.append(out)

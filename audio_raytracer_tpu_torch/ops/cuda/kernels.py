@@ -496,21 +496,21 @@ def run_chord_loss(fields: Fields, o: Tensor, d: Tensor, skip: int):
     [R, 3] (d unit length), skipping the colliders of target ``skip``
     (NO_SKIP for none). Returns [R] float32.
 
-    Its kernel is B3's at S = 1 (``csrc/multi_chord.cu``,
-    ``multi_chord_kernel<1>``: B3 at one set with per-ray origins is
-    exactly this function); it counts its own launches."""
+    Its kernel is B3's at S = 1 (``csrc/multi_chord.cu``, in the launch
+    shape ``fused.chord_splits`` picks: B3 at one set with per-ray origins
+    is exactly this function); it counts its own launches."""
     if on_cpu(o):
         return chord_loss_plain(fields, o, d, skip)
+    from audio_raytracer_tpu_torch.ops.cuda import fused
+
     lib = build.load("multi_chord")
     dev = o.device
     check_operands(dev, o, d)
     R = o.shape[0]
     out = torch.empty((R,), device=dev)
-    keep, skips_ptr = skips_arg([skip])
-    err = lib.multi_chord(o.data_ptr(), d.data_ptr(), R, 1, skips_ptr,
-                          *table_args(fields, dev), out.data_ptr(),
-                          stream_of(dev))
-    build.check("multi_chord", err)
+    fused.launch_multi_chord(lib, fields, o, d[None], [skip], out,
+                             fused.chord_splits(R, fields.total,
+                                                fused.sm_count(dev)))
     if R:
         run_chord_loss.launches += 1
     return out

@@ -435,7 +435,9 @@ class TestWrappers:
                                                  monkeypatch):
         # More sets than one launch takes: the wrappers launch once per
         # group, each with its own slice of the skips, and join the
-        # outputs. A stand-in library records the launches.
+        # outputs; every B3 group of one call takes the same launch shape
+        # (G, K). A stand-in library records the launches; the tables
+        # have the headline scene's 4,096 rows, the card 132 SMs.
         calls = []
 
         def read_skips(ptr, n):
@@ -447,7 +449,8 @@ class TestWrappers:
                 return 0
 
             def multi_chord(self, o, dirs, R, S, skips, *rest):
-                calls.append(("B3", R, S, read_skips(skips, S)))
+                G, K_ = rest[6:8]
+                calls.append(("B3", R, S, read_skips(skips, S), G, K_))
                 return 0
 
         monkeypatch.setattr(build, "load", lambda name: Lib())
@@ -455,20 +458,32 @@ class TestWrappers:
         monkeypatch.setattr(F, "occlusion_args",
                             lambda fields, skips, dev: [0] * 9)
         monkeypatch.setattr(F, "stream_of", lambda dev: 0)
-        fields = backends[0].fields
-        R, S = 5, 20
-        o = torch.zeros((R, 3), device="meta")
-        lim = torch.ones((R, S), device="meta")
-        init = torch.zeros((R, S), dtype=torch.bool, device="meta")
+        monkeypatch.setattr(F, "sm_count", lambda dev: 132)
+        fields = K.Fields(*(torch.zeros((n, w), device="meta") for n, w in
+                            ((1024, K.SPH_W), (2048, K.AABB_W),
+                             (1024, K.OBB_W))))
+        S = 20
         skips = (NO_SKIP,) + tuple(range(S - 1))
-        before = (F.run_multi_any_hit.launches, F.run_multi_chord.launches)
-        occ = F.run_multi_any_hit(fields, o, [o] * S, lim, skips, init)
-        loss = F.run_multi_chord(fields, o, [o] * (S - 1), skips[1:])
-        assert occ.shape == (R, S) and loss.shape == (R, S - 1)
-        assert (F.run_multi_any_hit.launches - before[0],
-                F.run_multi_chord.launches - before[1]) == (2, 2)
-        assert calls == [("B2", R, 16, skips[:16]), ("B2", R, 4, skips[16:]),
-                         ("B3", R, 16, skips[1:17]), ("B3", R, 3, skips[17:])]
+        splits = {}
+        for R in (5, 1 << 20):
+            o = torch.zeros((R, 3), device="meta")
+            lim = torch.ones((R, S), device="meta")
+            init = torch.zeros((R, S), dtype=torch.bool, device="meta")
+            calls.clear()
+            before = (F.run_multi_any_hit.launches,
+                      F.run_multi_chord.launches)
+            occ = F.run_multi_any_hit(fields, o, [o] * S, lim, skips, init)
+            loss = F.run_multi_chord(fields, o, [o] * (S - 1), skips[1:])
+            assert occ.shape == (R, S) and loss.shape == (R, S - 1)
+            assert (F.run_multi_any_hit.launches - before[0],
+                    F.run_multi_chord.launches - before[1]) == (2, 2)
+            splits[R] = calls[2][4:]
+            assert calls == [("B2", R, 16, skips[:16]),
+                             ("B2", R, 4, skips[16:]),
+                             ("B3", R, 16, skips[1:17], *splits[R]),
+                             ("B3", R, 3, skips[17:], *splits[R])]
+        assert splits[5] == (1, 16)  # a cluster of 16 blocks a ray
+        assert splits[1 << 20] == (F.BLOCK, 1)
 
     def test_plain_versions_do_not_count_launches(self, backends, rays):
         o, d = rays

@@ -352,7 +352,7 @@ def test_kernel_launches_and_arguments(backends, monkeypatch):
             return 0
 
         def multi_chord(self, o, d, R, S, skips, *rest):
-            calls.append(("B3", R, S, ptr_ints(skips, S)))
+            calls.append(("B3", R, S, ptr_ints(skips, S), *rest[6:8]))
             return 0
 
         def chord_loss_bwd(self, o, d, g, R, skip, *rest):
@@ -376,6 +376,7 @@ def test_kernel_launches_and_arguments(backends, monkeypatch):
     monkeypatch.setattr(F, "table_args", lambda fields, dev: [0] * 6)
     for mod in (K, F, C):
         monkeypatch.setattr(mod, "stream_of", lambda dev: 0)
+    monkeypatch.setattr(F, "sm_count", lambda dev: 132)
     fields = backends[0].fields
     o = torch.zeros((5, 3), device="meta")
     g = torch.ones((5,), device="meta")
@@ -388,8 +389,10 @@ def test_kernel_launches_and_arguments(backends, monkeypatch):
     x = torch.ones((16, 512), device="meta")
     assert C.run_calibrate("occl", 176, x, [g] * 6).shape == (16, 512)
     assert [a - b for a, b in zip(launches(), before)] == [1, 1, 2, 1]
-    # B4 takes its ray records padded to whole tiles.
-    assert calls == [("B6", 5, 1), ("B3", 5, 1, (NO_SKIP,)), ("B8", 5, 0),
+    # B7 takes B3's launch shape (5 rays, 64 lanes each over the scene's
+    # rows); B4 its ray records padded to whole tiles.
+    assert calls == [("B6", 5, 1), ("B3", 5, 1, (NO_SKIP,), 4, 1),
+                     ("B8", 5, 0),
                      ("B4", F.RAY_TILE_PAD, 1, (0,)),
                      ("B9", 16 * 512, 5, 1, 176)]
 
