@@ -19,7 +19,10 @@ holds the port to its copy of the scalar NumPy oracle
 (``utils.oracle``); and the demo layer (``demo``: scene JSON and its
 schema, the scene player ``demo.scene_player`` with its WAV render, the
 material calibration and pose-recovery CLI ``demo.train_materials``,
-the visualizer), with ``utils.checkpoint`` and ``utils.profiling``.
+the visualizer), with ``utils.checkpoint`` and ``utils.profiling``; and
+the sharded tier (``parallel``): a ('rays', 'prims') mesh of process
+groups on torch.distributed, the sharded forward and materials step,
+and the cluster bootstrap.
 """
 
 from audio_raytracer_tpu_torch.ops.fibonacci import fibonacci_directions

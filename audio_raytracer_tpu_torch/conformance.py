@@ -1,4 +1,4 @@
-"""Conformance runner of the port: BASELINE configs 1-4, one command.
+"""Conformance runner of the port: BASELINE configs 1-5, one command.
 
 ``python -m audio_raytracer_tpu_torch.conformance`` runs each config
 end-to-end through the port with its gate and prints one verdict line per
@@ -16,15 +16,21 @@ are those of the JAX runner (``audio_raytracer_tpu/conformance.py``):
   4  gradient workload (materials to a target loudness map)
          gate: finite-difference directional checks (float64) + material
          recovery (loudness error shrinks toward the target's)
+  5  pod-scale structure: 8 sources, rays x prims sharded
+         gate: a 4x2 ('rays', 'prims') mesh == 1 process, identical
+         workload (shard invariance), the 8 ranks spawned as processes
+         joined over gloo
 
 Configs 1-3 run on ``--device`` (default ``cuda``; the card's kernels
 with ``--backend kernel``, their plain versions on ``cpu``). Config 4
 runs in float64 on the CPU through the dense tier, whatever ``--device``
-says, as the JAX runner runs it in a CPU child with x64. Scenes come from
-the port's ``random_scene`` with numpy seeds, so their bits differ from
-the JAX runner's; each gate compares the port with the oracle on the same
-scene. Config 5 (shard invariance on a mesh) waits for the distribution
-slice of the port.
+says, as the JAX runner runs it in a CPU child with x64. Config 5's
+ranks run on ``--device`` too (all on the one card, over gloo, since
+NCCL puts one rank on a card), as the JAX runner runs it in a child with
+8 virtual devices. Scenes come from the port's ``random_scene`` with
+numpy seeds, so their bits differ from the JAX runner's; each gate
+compares the port with the oracle, or with itself unsharded, on the
+same scene.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ CONFIG_NAMES = {
     2: "mixed 256 colliders, 64K rays, permeation",
     3: "multi-bounce depth 4 + reverb IR bins",
     4: "gradient workload: material recovery",
+    5: "pod-scale structure: rays x prims sharded, 8 sources",
 }
 
 
@@ -294,7 +301,86 @@ def config_4(args):
                   f"{err0:.4f} -> {err1:.4f} in {steps} steps")
 
 
-CONFIGS = {1: config_1, 2: config_2, 3: config_3, 4: config_4}
+def _config_5_workload(fast: bool, device):
+    from audio_raytracer_tpu_torch.models.raytracer import random_scene
+    from audio_raytracer_tpu_torch.types import TraceConfig
+
+    rays = 1024 if fast else 4096
+    prims = 128 if fast else 512
+    cfg = TraceConfig(ray_count=rays, max_bounces=2, max_ray_life=150.0,
+                      num_accum_batches=4)
+    scene = random_scene(5, num_spheres=prims // 4, num_aabbs=prims // 2,
+                         num_obbs=prims // 4, num_targets=8, extent=50.0,
+                         size_range=(0.5, 4.0), device=device)
+    return cfg, scene
+
+
+def _config_5_rank(fast: bool, backend: str, device: str):
+    """One rank of config 5's 4x2 mesh: its settings and its B1-B3
+    launches."""
+    from audio_raytracer_tpu_torch.ops.cuda import fused as F
+    from audio_raytracer_tpu_torch.ops.cuda import kernels as K
+    from audio_raytracer_tpu_torch.ops.fibonacci import fibonacci_directions
+    from audio_raytracer_tpu_torch.parallel.distributed import (
+        local_ray_slice,
+        settings_arrays,
+    )
+    from audio_raytracer_tpu_torch.parallel.mesh import (
+        make_mesh,
+        pad_scene_for_prim_shards,
+        shard_scene,
+    )
+    from audio_raytracer_tpu_torch.parallel.sharded import (
+        make_sharded_forward,
+    )
+
+    mesh = make_mesh(4, 2, backend="gloo", device=device)
+    cfg, scene = _config_5_workload(fast, mesh.device)
+    dirs = fibonacci_directions(cfg.ray_count, device=mesh.device)
+    wrappers = (K.run_closest_hit, F.run_multi_any_hit, F.run_multi_chord)
+    for w in wrappers:
+        w.launches = 0
+    settings = make_sharded_forward(cfg, mesh, backend=backend)(
+        torch.zeros(3, device=mesh.device),
+        dirs[local_ray_slice(cfg.ray_count, mesh)],
+        shard_scene(pad_scene_for_prim_shards(scene, 2), mesh))
+    return settings_arrays(settings), [w.launches for w in wrappers]
+
+
+def config_5(args):
+    """Shard invariance: a 4x2 ('rays', 'prims') mesh == 1 process."""
+    from audio_raytracer_tpu_torch.models.raytracer import make_forward
+    from audio_raytracer_tpu_torch.ops.fibonacci import fibonacci_directions
+    from audio_raytracer_tpu_torch.parallel.distributed import (
+        settings_arrays,
+        spawn,
+    )
+
+    cfg, scene = _config_5_workload(args.fast, args.device)
+    _, dense = make_forward(cfg, backend=args.backend, device=args.device)(
+        torch.zeros(3, device=args.device),
+        fibonacci_directions(cfg.ray_count, device=args.device), scene)
+    want = settings_arrays(dense)
+    ranks = spawn(_config_5_rank, 8,
+                  (args.fast, args.backend, str(args.device)))
+    got, launches = ranks[0]
+    try:
+        for got_r, _ in ranks:
+            for k in want:
+                np.testing.assert_allclose(got_r[k], want[k], rtol=1e-5,
+                                           atol=1e-6)
+    except AssertionError as e:
+        return False, _first_line(e)
+    err = float(np.abs(got["muffle"] - want["muffle"]).max())
+    return True, (f"4x2 mesh == 1 process @ {cfg.ray_count} rays x "
+                  f"{scene.num_primitives} prims x 8 sources (muffle "
+                  f"max|diff| {err:.2e}); rank 0 launched B1/B2/B3 "
+                  f"{'/'.join(map(str, launches))} [8 ranks over gloo "
+                  f"on {args.device}]")
+
+
+CONFIGS = {1: config_1, 2: config_2, 3: config_3, 4: config_4,
+           5: config_5}
 
 
 def main(argv=None):
@@ -309,7 +395,8 @@ def main(argv=None):
     p.add_argument("--backend", default="kernel", choices=["kernel", "dense"],
                    help="intersection engine for the forward gates")
     p.add_argument("--device", default="cuda",
-                   help="device of configs 1-3 (config 4 runs on the CPU)")
+                   help="device of configs 1-3 and 5 (config 4 runs on "
+                        "the CPU)")
     args = p.parse_args(argv)
     args.device = resolve_device(args.device)
 

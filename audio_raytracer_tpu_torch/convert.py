@@ -8,9 +8,11 @@ leaves the caller has turned into numpy arrays — for a JAX scene,
 do the same for the JAX ``SceneParams`` and ``Loudness``, so both
 packages can train the same parameters toward the same target;
 ``adam_from_arrays`` carries optax adam's moments and count into the
-port's ``torch.optim.Adam``, so a run started in JAX continues here. Only
-attribute names are read, so any object with the JAX structure works,
-and nothing of JAX is imported.
+port's ``torch.optim.Adam``, so a run started in JAX continues here;
+``shard_from_arrays`` carries a (padded) JAX scene and its parameters to
+one rank's shard of a mesh, so a shard can be held against the JAX
+package's global arrays. Only attribute names are read, so any object
+with the JAX structure works, and nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from audio_raytracer_tpu_torch.models.differentiable import (
     Loudness,
     SceneParams,
 )
+from audio_raytracer_tpu_torch.parallel.mesh import Mesh, shard_scene
+from audio_raytracer_tpu_torch.parallel.train import shard_params
 from audio_raytracer_tpu_torch.types import (
     Aabbs,
     Materials,
@@ -110,3 +114,15 @@ def adam_from_arrays(mu, nu, count, optimizer):
             "step": torch.tensor(float(count), dtype=torch.float32),
             "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq}
     return optimizer
+
+
+def shard_from_arrays(scene, mesh: Mesh, params=None):
+    """This rank's ``(Scene, SceneParams or None)`` shard on ``mesh.device``
+    from a JAX ``Scene`` (numpy leaves, padded for the prim shards) and,
+    optionally, a JAX ``SceneParams``: ``scene_from_arrays`` and
+    ``params_from_arrays`` composed with ``shard_scene`` and
+    ``shard_params``."""
+    local = shard_scene(scene_from_arrays(scene, mesh.device), mesh)
+    if params is None:
+        return local, None
+    return local, shard_params(params_from_arrays(params, mesh.device), mesh)

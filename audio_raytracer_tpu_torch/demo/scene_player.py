@@ -14,7 +14,8 @@ Usage:
       --frames 120 --render-wav out.wav --npz trace.npz
 
 The JAX player's ``--mesh`` (serving over a device mesh) is not ported
-yet: it comes with the port's distribution slice.
+yet (ROADMAP item 10b): it needs the runtime's meshed mode. The sharded
+forward itself is ``parallel/sharded.py``.
 """
 
 from __future__ import annotations

@@ -31,7 +31,8 @@ is resumable (params + optimizer moments + step counter round-trip,
 The noise of --init noisy and of the pose perturbation comes from a
 torch.Generator seeded by --seed: the same start on every device, not
 the JAX package's. The JAX CLI's --mesh (training over a device mesh)
-is not ported yet: it comes with the port's distribution slice.
+is not ported yet (ROADMAP item 10b); the sharded materials step it
+would call is parallel/train.py::make_sharded_train_step.
 """
 
 from __future__ import annotations

@@ -25,12 +25,15 @@ starts from the bounce-0 hit.
 ``backend`` is "kernel" (``KernelBackend(differentiable=True)``: the CUDA
 kernels B1-B3 forward, B4 or B5 backward; their plain versions for a
 scene on the CPU) or "dense" (plain [rays, prims] grids under autograd),
-or an engine object with the backend protocol. Entry points run on
-``device="cuda"`` unless the caller asks for ``device="cpu"``.
+or an engine object with the backend protocol (``PrimShardedBackend``
+for a shard of the primitives). Entry points run on ``device="cuda"``
+unless the caller asks for ``device="cpu"``.
 
-Ray-axis sharding (the JAX ``axis_name`` / ``pvary_axes`` arguments, and
-``total_ray_count`` for a shard's share of the rays) is left to the
-distribution slice of the port.
+Ray sharding (``parallel/train.py``): ``loudness_map``'s ``group`` sums
+the partial sums over a process group of ray shards, and
+``total_ray_count`` is the rays of all shards, as the JAX ``axis_name``
+and ``total_ray_count`` do. The JAX ``pvary_axes`` has no counterpart:
+it types ``shard_map``'s scan carries, and the port has neither.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from audio_raytracer_tpu_torch.ops import intersect
 from audio_raytracer_tpu_torch.ops import reverb as reverb_op
 from audio_raytracer_tpu_torch.models.raytracer import make_backend
 from audio_raytracer_tpu_torch.ops.trace import _secondary_occlusion
+from audio_raytracer_tpu_torch.parallel import comm
 from audio_raytracer_tpu_torch.types import (
     Materials,
     Scene,
@@ -125,16 +129,22 @@ def adam(lr: float = 1e-2):
 
 
 def loudness_map(origin: Tensor, directions: Tensor, scene: Scene,
-                 cfg: TraceConfig, backend="kernel",
-                 device="cuda") -> Loudness:
+                 cfg: TraceConfig, backend="kernel", device="cuda",
+                 group=None, total_ray_count: int | None = None) -> Loudness:
     """The differentiable loudness field of the listener at ``origin`` [3]
     tracing ``directions`` [R, 3]. The kernel backend's chord adjoint is
-    B4 alone where no pose needs a gradient, B5 otherwise."""
+    B4 alone where no pose needs a gradient, B5 otherwise.
+
+    For one ray shard of a mesh: ``group`` is the process group of the
+    ray shards, over which the partial sums are summed (the result is the
+    same on every rank), and ``total_ray_count`` the rays of all of
+    them."""
     dev = resolve_device(device)
     check_device(dev, origin=origin, directions=directions,
                  scene=scene.target_positions)
     engine = make_backend(scene, backend, differentiable=True)
     R = directions.shape[0]
+    R_total = total_ray_count if total_ray_count is not None else R
     T = scene.num_targets
     H = cfg.max_hits_per_ray
     eps = cfg.epsilon
@@ -197,24 +207,25 @@ def loudness_map(origin: Tensor, directions: Tensor, scene: Scene,
             to_t = scene.target_positions[ti] - off
             dirs.append(to_t / intersect.safe_norm(to_t)[..., None])
         losses = engine.multi_permeation_loss(off, dirs, tuple(range(T)))
-        vals = cfg.permeation_strength_per_ray - losses / R
+        vals = cfg.permeation_strength_per_ray - losses / R_total
         perm_sum = torch.where(hit_first[..., None], vals, 0.0).sum(dim=0)
     else:
         perm_sum = directions.new_zeros((0,))
 
     echo_v, echo_w = torch.stack(echo_v), torch.stack(echo_w)  # [H, R]
-    muffle_sum = torch.stack(muffle_c).sum(dim=(0, 1))  # [T]
-    echo_sum = torch.sum(echo_v * echo_w)
+    muffle_sum, echo_sum, perm_sum = comm.all_reduce_sums(
+        [torch.stack(muffle_c).sum(dim=(0, 1)),  # [T]
+         torch.sum(echo_v * echo_w), perm_sum], group)
     reverb_ir = None
     if cfg.num_reverb_bins > 0:
         # Energy-weighted IR, normalized per ray (invariant to the ray
         # budget).
-        reverb_ir = reverb_op.impulse_response(echo_v, cfg,
-                                               weights=echo_w) / R
+        reverb_ir = reverb_op.impulse_response(
+            echo_v, cfg, weights=echo_w, group=group) / R_total
     return Loudness(
-        muffle=muffle_sum / (R * H),
-        permeation=perm_sum / R * cfg.permeation_effectiveness,
-        reverb_energy=echo_sum / (R * H * cfg.max_reverb_distance),
+        muffle=muffle_sum / (R_total * H),
+        permeation=perm_sum / R_total * cfg.permeation_effectiveness,
+        reverb_energy=echo_sum / (R_total * H * cfg.max_reverb_distance),
         reverb_ir=reverb_ir)
 
 

@@ -120,14 +120,38 @@ class KernelBackend:
             uni = intersect.unified_arrays(scene)
             self._geom_tab, self._mat_tab = build_attr_tabs(uni, self.total)
 
+    @property
+    def recompute_winner_t(self) -> bool:
+        """The kernel's t has no gradient; with ``differentiable`` the
+        winner's t is recomputed with autograd (here, and in
+        PrimShardedBackend after the cross-shard merge)."""
+        return self.differentiable
+
+    def local_closest(self, o: Tensor, d: Tensor,
+                      alive: Tensor | None = None):
+        """B1: (t [R] (+inf on a miss), idx [R] int64 in sphere -> AABB ->
+        OBB order, a miss clamped to the last row): the local-engine
+        protocol of PrimShardedBackend. No gradient."""
+        t, rank = K.run_closest_hit(self.fields, o.detach().contiguous(),
+                                    d.detach().contiguous(), alive)
+        return t, torch.clamp(rank, max=self.total - 1).long()
+
+    def attr_rows(self, idx: Tensor) -> Tensor:
+        """[R, 16] winner rows of local indices in
+        ``intersect.unpack_attr_rows``' layout: the geometry from the
+        detached table, absorption and echo from the one in the graph,
+        so a sharded materials step still trains them."""
+        geom = self._geom_tab.index_select(0, idx)[:, :11]
+        mat = self._mat_tab.index_select(0, idx)
+        return torch.nn.functional.pad(torch.cat([geom, mat], dim=1),
+                                       (0, 3))
+
     def closest_hit(self, o: Tensor, d: Tensor, alive: Tensor | None = None):
         """(hit [R], t [R] (+inf miss), attrs of the winning primitive)."""
         if self.total == 0:
             t = torch.full(o.shape[:-1], float("inf"), device=o.device)
             return torch.zeros_like(t, dtype=torch.bool), t, empty_attrs(o, t)
-        t, rank = K.run_closest_hit(self.fields, o.detach().contiguous(),
-                                    d.detach().contiguous(), alive)
-        idx = torch.clamp(rank, max=self.total - 1).long()
+        t, idx = self.local_closest(o, d, alive)
         attrs = attrs_from_tabs(self._geom_tab, self._mat_tab, idx)
         hit = torch.isfinite(t)
         if self.differentiable:

@@ -5,7 +5,10 @@ with a plain C interface (no PyTorch headers, so a build takes seconds).
 All sources build in parallel, one nvcc process each, the first time any
 kernel is needed. Libraries land in ``audio_raytracer_tpu_torch/_build/``
 (git-ignored), named by a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads from disk.
+source rebuilds and an unchanged one loads from disk. The build holds an
+exclusive lock on ``_build/lock`` (``fcntl.flock``) beside the thread
+lock, so ranks of a mesh that start cold build once and load the same
+libraries.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, no ``--use_fast_math`` (the miss
 encodings rely on IEEE inf arithmetic and exact division), and
@@ -15,7 +18,9 @@ round it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -81,14 +86,28 @@ def nvcc_command(nvcc: str, name: str, out: str) -> list[str]:
     return [nvcc, *NVCC_FLAGS, "-o", out, os.path.join(CSRC_DIR, f"{name}.cu")]
 
 
+@contextlib.contextmanager
+def build_lock(directory: str = BUILD_DIR):
+    """Exclusive across threads (``_lock``) and processes (``flock`` on
+    ``directory/lock``, released by the kernel if the holder dies)."""
+    with _lock:
+        os.makedirs(directory, exist_ok=True)
+        with open(os.path.join(directory, "lock"), "a") as fh:
+            fcntl.flock(fh, fcntl.LOCK_EX)
+            try:
+                yield
+            finally:
+                fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def build_all() -> dict[str, ctypes.CDLL]:
     """Compile every missing library (in parallel) and load them all."""
-    with _lock:
+    with build_lock():
+        # Checked under the lock: another process may have just built.
         missing = [n for n in SOURCES
                    if n not in _libs and not os.path.exists(lib_path(n))]
         if missing:
             nvcc = find_nvcc()
-            os.makedirs(BUILD_DIR, exist_ok=True)
             procs = {}
             for n in missing:
                 tmp = f"{lib_path(n)}.{os.getpid()}.tmp"

@@ -28,13 +28,18 @@ Tensor = torch.Tensor
 
 def permeation(origin: Tensor, directions: Tensor, scene: Scene,
                cfg: TraceConfig, backend=None,
+               total_ray_count: int | None = None,
                first_t: Tensor | None = None) -> Tensor:
     """[B, T] permeation power remains per (accum batch, target).
 
-    ``first_t`` ([R], optional) is the primary-ray first-hit distance
-    (TraceResult.first_hit_t); without it the scene is scanned again.
+    ``total_ray_count`` takes the place of the ray count in the
+    RayDirections.Length term of cs:260 when ``directions`` is one shard
+    of a larger batch. ``first_t`` ([R], optional) is the primary-ray
+    first-hit distance (TraceResult.first_hit_t); without it the scene is
+    scanned again.
     """
     R = directions.shape[0]
+    R_total = total_ray_count if total_ray_count is not None else R
     T = scene.num_targets
     B = cfg.num_accum_batches
     dev = directions.device
@@ -73,5 +78,5 @@ def permeation(origin: Tensor, directions: Tensor, scene: Scene,
         dirs.append(to_target / intersect.safe_norm(to_target)[..., None])
     losses = backend.multi_permeation_loss(offset_point, dirs,
                                            tuple(range(T)))  # [B, T]
-    values = R * cfg.permeation_strength_per_ray - losses  # cs:260
+    values = R_total * cfg.permeation_strength_per_ray - losses  # cs:260
     return torch.where(any_hit_in_batch[:, None], values, 0.0)

@@ -12,13 +12,16 @@ differentiable) in the echo distances and linear in the weights; delays
 beyond the window land in the last bin. Zero entries of
 ``echo_distances`` mean "no clear echo for this (ray, bounce) slot" and
 carry no energy here (ops/process.py counts them in its reverb_volume
-stat, as the reference does).
+stat, as the reference does). The histogram is a plain sum over rays, so
+under ray sharding it sums over the ray group like the muffle and
+permeation accumulators.
 """
 
 from __future__ import annotations
 
 import torch
 
+from audio_raytracer_tpu_torch.parallel import comm
 from audio_raytracer_tpu_torch.types import TraceConfig, resolve_device
 
 SPEED_OF_SOUND = 343.0  # m/s at 20C
@@ -32,12 +35,15 @@ def bin_times(cfg: TraceConfig, device="cuda") -> torch.Tensor:
 
 
 def impulse_response(echo_distances: torch.Tensor, cfg: TraceConfig,
-                     weights: torch.Tensor | None = None) -> torch.Tensor:
+                     weights: torch.Tensor | None = None,
+                     group=None) -> torch.Tensor:
     """[n_bins] energy histogram over arrival-time bins.
 
     echo_distances: [..., H] (0 = no echo). ``weights``: matching energy
     weights (the per-bounce ray energy of models.differentiable); one
-    unit per echo when None. Autograd reaches both inputs."""
+    unit per echo when None. With ``group`` (a process group of ray
+    shards), the histogram is summed over it. Autograd reaches both
+    inputs."""
     n = cfg.num_reverb_bins
     if n <= 0:
         raise ValueError(
@@ -59,4 +65,4 @@ def impulse_response(echo_distances: torch.Tensor, cfg: TraceConfig,
     ir = torch.zeros((n,), dtype=dist.dtype, device=dist.device)
     ir.index_add_(0, i0, w * (1.0 - frac))
     ir.index_add_(0, i1, w * frac)
-    return ir
+    return comm.all_reduce_sum(ir, group)

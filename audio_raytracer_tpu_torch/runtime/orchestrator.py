@@ -53,7 +53,10 @@ class AsyncRaytraceLoop:
 
     ``device="cpu"`` runs every frame synchronously inside ``tick`` (a
     frame is always done when probed). The meshed mode of the JAX loop
-    waits for the distribution slice of the port.
+    is not ported yet (ROADMAP item 10b): with one process per rank, a
+    serving loop has to broadcast each tick's origin and snapshot to
+    every rank. The sharded forward it would serve is
+    ``parallel/sharded.py``.
     """
 
     def __init__(self, registry, cfg: TraceConfig, backend="kernel",

@@ -1,8 +1,9 @@
 """The port's conformance runner (audio_raytracer_tpu_torch.conformance):
-configs 1-4 must PASS through the one-command entry point at --fast
+configs 1-5 must PASS through the one-command entry point at --fast
 sizes on the CPU (configs 1-3 through the CUDA kernels' plain versions,
-config 4 in float64 through the dense tier), and a failing gate must flip
-the exit code, as tests/test_conformance.py holds the JAX runner."""
+config 4 in float64 through the dense tier, config 5 on 8 spawned ranks
+over gloo), and a failing gate must flip the exit code, as
+tests/test_conformance.py holds the JAX runner."""
 
 import pytest
 import torch
@@ -16,9 +17,9 @@ class TestConformance:
     def test_all_configs_pass_fast(self, capsys):
         rc = conf.main(["--fast", "--device", "cpu"])
         out = capsys.readouterr().out
-        assert "conformance: 4/4 PASS" in out, out
+        assert "conformance: 5/5 PASS" in out, out
         assert rc == 0
-        for i in range(1, 5):
+        for i in range(1, 6):
             assert f"config {i} [" in out, out
         assert "FAIL" not in out, out
 
