@@ -49,26 +49,39 @@
 // instructions (about 80 of the 127 per (ray, AABB) at S = 5), which
 // appear to issue at most every other cycle; the bound counts them at
 // the FFMA rate.
+//
+// The bfloat16 tier (the JAX wrapper's dtype=jnp.bfloat16) is the same
+// kernel at C = BF16 (multi_any_hit_bf16): the rounding points of the JAX
+// tier (fields.cuh, "Compute types"); the sphere's c and h are widened to
+// float32 before the sign tests, the slab's t_near and t_far before the
+// limit test, and the OBB reciprocals stay float32 (rcp_newton).
 
 #include "fields.cuh"
 
-template <int S>
+// One ray's S sets in the compute type C (fields.cuh): the origin,
+// directions and inverse directions in C::T, the limits in float32.
+template <int S, class C>
 struct OccRay {
-  float ox, oy, oz;
-  float dx[S], dy[S], dz[S], lim[S], ix[S], iy[S], iz[S];
+  using T = typename C::T;
+  T ox, oy, oz;
+  T dx[S], dy[S], dz[S], ix[S], iy[S], iz[S];
+  float lim[S];
   unsigned acc;  // bit s: set s occluded or resolved on entry
 };
 
-template <int S, bool OWNED>
-__device__ __forceinline__ void sphere_row(const float* p, OccRay<S>& y,
+template <int S, class C, bool OWNED>
+__device__ __forceinline__ void sphere_row(const float* p, OccRay<S, C>& y,
                                            const Skips& sk) {
+  using T = typename C::T;
   const int tgt = as_id(p[4]);
-  const float ocx = y.ox - p[0], ocy = y.oy - p[1], ocz = y.oz - p[2];
-  const float c = (ocx * ocx + ocy * ocy + ocz * ocz) - p[3];
+  const T ocx = C::sub(y.ox, C::ld(p[0])), ocy = C::sub(y.oy, C::ld(p[1])),
+          ocz = C::sub(y.oz, C::ld(p[2]));
+  const float c =
+      C::up(dot3<C>(ocx, ocy, ocz, ocx, ocy, ocz)) - C::up(C::ld(p[3]));
   const bool c_pos = c >= 0.0f;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    const float h = ocx * y.dx[s] + ocy * y.dy[s] + ocz * y.dz[s];
+    const float h = C::up(dot3<C>(ocx, ocy, ocz, y.dx[s], y.dy[s], y.dz[s]));
     const float hl = h + y.lim[s];
     const float q = y.lim[s] * (hl + h) + c;
     const bool entering = c_pos & (h <= 0.0f) & ((hl > 0.0f) | (q < 0.0f));
@@ -86,16 +99,19 @@ __device__ __forceinline__ bool slab_within(float tn, float tf, float miss,
   return !(tn > tf) & !(tf < 0.0f) & ((tn > 0.0f ? tn : tf) + miss < lim);
 }
 
-template <int S, bool OWNED>
-__device__ __forceinline__ void aabb_row(const float* p, OccRay<S>& y,
+template <int S, class C, bool OWNED>
+__device__ __forceinline__ void aabb_row(const float* p, OccRay<S, C>& y,
                                          const Skips& sk) {
+  using T = typename C::T;
   const int tgt = as_id(p[7]);
-  const float mnx = p[0] - y.ox, mny = p[1] - y.oy, mnz = p[2] - y.oz;
-  const float mxx = p[3] - y.ox, mxy = p[4] - y.oy, mxz = p[5] - y.oz;
+  const T mnx = field_minus<C>(p[0], y.ox), mny = field_minus<C>(p[1], y.oy),
+          mnz = field_minus<C>(p[2], y.oz);
+  const T mxx = field_minus<C>(p[3], y.ox), mxy = field_minus<C>(p[4], y.oy),
+          mxz = field_minus<C>(p[5], y.oz);
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     float tn, tf;
-    slab(mnx, mny, mnz, mxx, mxy, mxz, y.ix[s], y.iy[s], y.iz[s], tn, tf);
+    slab<C>(mnx, mny, mnz, mxx, mxy, mxz, y.ix[s], y.iy[s], y.iz[s], tn, tf);
     bool occ = slab_within(tn, tf, p[6], y.lim[s]);
     if constexpr (OWNED) occ &= tgt != sk.v[s];
     if (occ) y.acc |= 1u << s;
@@ -104,30 +120,32 @@ __device__ __forceinline__ void aabb_row(const float* p, OccRay<S>& y,
 
 // The sets an OBB row occludes; NEWTON selects rcp_newton for the
 // reciprocals (ok: every local direction component in rcp_in_range) or
-// safe_inv.
-template <int S, bool OWNED, bool NEWTON>
+// safe_inv, both in float32.
+template <int S, class C, bool OWNED, bool NEWTON>
 __device__ __forceinline__ unsigned obb_hits(const float* p,
-                                             const OccRay<S>& y,
+                                             const OccRay<S, C>& y,
                                              const Skips& sk, bool& ok) {
+  using T = typename C::T;
   const int tgt = as_id(p[16]);
-  float lox, loy, loz;
-  mat_rotate(p + 6, y.ox - p[0], y.oy - p[1], y.oz - p[2], lox, loy, loz);
-  const float mnx = -p[3] - lox, mny = -p[4] - loy, mnz = -p[5] - loz;
-  const float mxx = p[3] - lox, mxy = p[4] - loy, mxz = p[5] - loz;
+  T mn[3], mx[3];
+  obb_terms<C>(p, y.ox, y.oy, y.oz, mn, mx);
   unsigned hits = 0;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    float ldx, ldy, ldz;
-    mat_rotate(p + 6, y.dx[s], y.dy[s], y.dz[s], ldx, ldy, ldz);
-    float ix, iy, iz;
+    T ldx, ldy, ldz;
+    mat_rotate<C>(p + 6, y.dx[s], y.dy[s], y.dz[s], ldx, ldy, ldz);
+    T ix, iy, iz;
     if constexpr (NEWTON) {
-      ok &= rcp_in_range(ldx) & rcp_in_range(ldy) & rcp_in_range(ldz);
-      ix = rcp_newton(ldx); iy = rcp_newton(ldy); iz = rcp_newton(ldz);
+      const float fx = C::up(ldx), fy = C::up(ldy), fz = C::up(ldz);
+      ok &= rcp_in_range(fx) & rcp_in_range(fy) & rcp_in_range(fz);
+      ix = C::ld(rcp_newton(fx));
+      iy = C::ld(rcp_newton(fy));
+      iz = C::ld(rcp_newton(fz));
     } else {
-      ix = safe_inv(ldx); iy = safe_inv(ldy); iz = safe_inv(ldz);
+      ix = inv_dir<C>(ldx); iy = inv_dir<C>(ldy); iz = inv_dir<C>(ldz);
     }
     float tn, tf;
-    slab(mnx, mny, mnz, mxx, mxy, mxz, ix, iy, iz, tn, tf);
+    slab<C>(mn[0], mn[1], mn[2], mx[0], mx[1], mx[2], ix, iy, iz, tn, tf);
     bool occ = slab_within(tn, tf, p[15], y.lim[s]);
     if constexpr (OWNED) occ &= tgt != sk.v[s];
     if (occ) hits |= 1u << s;
@@ -135,33 +153,34 @@ __device__ __forceinline__ unsigned obb_hits(const float* p,
   return hits;
 }
 
-template <int S, bool OWNED>
-__device__ __forceinline__ void obb_row(const float* p, OccRay<S>& y,
+template <int S, class C, bool OWNED>
+__device__ __forceinline__ void obb_row(const float* p, OccRay<S, C>& y,
                                         const Skips& sk) {
   bool ok = true;
-  unsigned hits = obb_hits<S, OWNED, true>(p, y, sk, ok);
-  if (!ok) hits = obb_hits<S, OWNED, false>(p, y, sk, ok);
+  unsigned hits = obb_hits<S, C, OWNED, true>(p, y, sk, ok);
+  if (!ok) hits = obb_hits<S, C, OWNED, false>(p, y, sk, ok);
   y.acc |= hits;
 }
 
 // The rows of one tile against the thread's ray.
-template <int S, int KIND, bool OWNED>
-__device__ __forceinline__ void walk_tile(const float* tile, OccRay<S>& y,
+template <int S, class C, int KIND, bool OWNED>
+__device__ __forceinline__ void walk_tile(const float* tile, OccRay<S, C>& y,
                                           const Skips& sk) {
   constexpr int W = KIND == 0 ? SPH_W : (KIND == 1 ? AABB_W : OBB_W);
 #pragma unroll 2
   for (int j = 0; j < RING_TILE; ++j) {
     const float* p = tile + j * W;
-    if constexpr (KIND == 0) sphere_row<S, OWNED>(p, y, sk);
-    if constexpr (KIND == 1) aabb_row<S, OWNED>(p, y, sk);
-    if constexpr (KIND == 2) obb_row<S, OWNED>(p, y, sk);
+    if constexpr (KIND == 0) sphere_row<S, C, OWNED>(p, y, sk);
+    if constexpr (KIND == 1) aabb_row<S, C, OWNED>(p, y, sk);
+    if constexpr (KIND == 2) obb_row<S, C, OWNED>(p, y, sk);
   }
 }
 
 // s: six segments — per type (spheres, AABBs, OBBs) the rows owned by no
 // skip target of the launch, then the rows owned by one; each padded to
-// whole tiles with rows that never hit.
-template <int S>
+// whole tiles with rows that never hit. The origin and directions are
+// rounded to C on entry.
+template <int S, class C>
 __global__ void __launch_bounds__(BLOCK)
 multi_any_hit_kernel(const float* __restrict__ o,
                      const float* __restrict__ dirs,
@@ -175,25 +194,28 @@ multi_any_hit_kernel(const float* __restrict__ o,
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = r < R;
 
-  OccRay<S> y;
-  y.ox = y.oy = y.oz = 0.0f;
+  OccRay<S, C> y;
+  float fo[3] = {0.f, 0.f, 0.f};
   y.acc = ALL;
   if (in_range) {
-    y.ox = o[3 * r]; y.oy = o[3 * r + 1]; y.oz = o[3 * r + 2];
+    fo[0] = o[3 * r]; fo[1] = o[3 * r + 1]; fo[2] = o[3 * r + 2];
     y.acc = 0;
   }
+  y.ox = C::ld(fo[0]); y.oy = C::ld(fo[1]); y.oz = C::ld(fo[2]);
 #pragma unroll
   for (int q = 0; q < S; ++q) {
-    y.dx[q] = y.dy[q] = y.dz[q] = y.lim[q] = 0.0f;
+    float fd[3] = {0.f, 0.f, 0.f};
+    y.lim[q] = 0.0f;
     if (in_range) {
       const size_t i = 3 * ((size_t)q * R + r);
-      y.dx[q] = dirs[i]; y.dy[q] = dirs[i + 1]; y.dz[q] = dirs[i + 2];
+      fd[0] = dirs[i]; fd[1] = dirs[i + 1]; fd[2] = dirs[i + 2];
       y.lim[q] = limits[(size_t)r * S + q];
       if (init[(size_t)r * S + q] != 0) y.acc |= 1u << q;
     }
-    y.ix[q] = safe_inv(y.dx[q]);
-    y.iy[q] = safe_inv(y.dy[q]);
-    y.iz[q] = safe_inv(y.dz[q]);
+    y.dx[q] = C::ld(fd[0]); y.dy[q] = C::ld(fd[1]); y.dz[q] = C::ld(fd[2]);
+    y.ix[q] = inv_dir<C>(y.dx[q]);
+    y.iy[q] = inv_dir<C>(y.dy[q]);
+    y.iz[q] = inv_dir<C>(y.dz[q]);
   }
   const bool live = y.acc != ALL;
 
@@ -204,7 +226,7 @@ multi_any_hit_kernel(const float* __restrict__ o,
 #define WALK(SEG, KIND, OWNED)                                            \
   for (int k = 0; k < s.tiles[SEG]; ++k, ++t) {                           \
     const float* tile = ring_wait(ring, full, t);                         \
-    if (live) walk_tile<S, KIND, OWNED>(tile, y, skips);                  \
+    if (live) walk_tile<S, C, KIND, OWNED>(tile, y, skips);               \
     ring_release(s, ring, full, t);                                       \
   }
     WALK(0, 0, false) WALK(1, 0, true)
@@ -221,21 +243,18 @@ multi_any_hit_kernel(const float* __restrict__ o,
 
 #define LAUNCH_SETS(N)                                                      \
   case N:                                                                   \
-    multi_any_hit_kernel<N><<<(R + BLOCK - 1) / BLOCK, BLOCK, 0,            \
-                              (cudaStream_t)stream>>>(                      \
+    multi_any_hit_kernel<N, C><<<(R + BLOCK - 1) / BLOCK, BLOCK, 0,         \
+                                 (cudaStream_t)stream>>>(                   \
         o, dirs, limits, init, R, sk, st, occ_out);                         \
     break;
 
-// Per type: the table and its counts of rows owned by no skip target of
-// this launch (first) and by one (after the first part's padding to whole
-// tiles); each part is padded to whole tiles with rows that never hit.
-extern "C" int multi_any_hit(const float* o, const float* dirs,
-                             const float* limits, const unsigned char* init,
-                             int R, int S, const int* skips,
-                             const float* sph, int ns_free, int ns_owned,
-                             const float* aabb, int na_free, int na_owned,
-                             const float* obb, int no_free, int no_owned,
-                             unsigned char* occ_out, void* stream) {
+template <class C>
+static int launch(const float* o, const float* dirs, const float* limits,
+                  const unsigned char* init, int R, int S, const int* skips,
+                  const float* sph, int ns_free, int ns_owned,
+                  const float* aabb, int na_free, int na_owned,
+                  const float* obb, int no_free, int no_owned,
+                  unsigned char* occ_out, void* stream) {
   if (S < 1 || S > MAX_SETS) return (int)cudaErrorInvalidValue;
   if (R == 0) RETURN_LAST_ERROR;
   Skips sk;
@@ -253,10 +272,41 @@ extern "C" int multi_any_hit(const float* o, const float* dirs,
   RETURN_LAST_ERROR;
 }
 
+// Per type: the table and its counts of rows owned by no skip target of
+// this launch (first) and by one (after the first part's padding to whole
+// tiles); each part is padded to whole tiles with rows that never hit.
+extern "C" int multi_any_hit(const float* o, const float* dirs,
+                             const float* limits, const unsigned char* init,
+                             int R, int S, const int* skips,
+                             const float* sph, int ns_free, int ns_owned,
+                             const float* aabb, int na_free, int na_owned,
+                             const float* obb, int no_free, int no_owned,
+                             unsigned char* occ_out, void* stream) {
+  return launch<F32>(o, dirs, limits, init, R, S, skips, sph, ns_free,
+                     ns_owned, aabb, na_free, na_owned, obb, no_free,
+                     no_owned, occ_out, stream);
+}
+
+// The bfloat16 tier: the same arguments (float32 rays, limits and tables;
+// the rays and the geometry rounded in the kernel).
+extern "C" int multi_any_hit_bf16(const float* o, const float* dirs,
+                                  const float* limits,
+                                  const unsigned char* init, int R, int S,
+                                  const int* skips, const float* sph,
+                                  int ns_free, int ns_owned,
+                                  const float* aabb, int na_free,
+                                  int na_owned, const float* obb,
+                                  int no_free, int no_owned,
+                                  unsigned char* occ_out, void* stream) {
+  return launch<BF16>(o, dirs, limits, init, R, S, skips, sph, ns_free,
+                      ns_owned, aabb, na_free, na_owned, obb, no_free,
+                      no_owned, occ_out, stream);
+}
+
 #define OCCUPANCY_SETS(N)                                                   \
   case N:                                                                   \
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(              \
-        blocks, multi_any_hit_kernel<N>, BLOCK, 0);
+        blocks, multi_any_hit_kernel<N, F32>, BLOCK, 0);
 
 // Resident blocks per SM of the kernel at S sets (cudaOccupancy...).
 extern "C" int multi_any_hit_occupancy(int S, int* blocks) {

@@ -38,6 +38,12 @@
 // cluster's blocks in rank order through distributed shared memory. Two
 // launches give the same bits; there are no atomics and no global
 // scratch, so two streams may run it at once.
+//
+// The bfloat16 tier (the JAX wrapper's dtype=jnp.bfloat16) is both
+// kernels at C = BF16 (multi_chord_bf16), in the same launch shapes: the
+// rounding points of the JAX tier (fields.cuh, "Compute types"); a
+// sphere's |oc|^2 - r2 is taken in bfloat16 and widened, as the JAX
+// kernel takes it, the chords and their sums are float32.
 
 #include <cooperative_groups.h>
 
@@ -48,51 +54,55 @@ namespace cg = cooperative_groups;
 // Most blocks in one cluster (non-portable; 8 is portable).
 #define MAX_CLUSTER 16
 
-// One ray's S sets: the shared origin, each set's direction, inverse
-// direction and skip target.
-template <int S>
+// One ray's S sets in the compute type C (fields.cuh): the shared origin,
+// each set's direction and inverse direction (rounded to C on entry) and
+// skip target.
+template <int S, class C>
 struct RaySets {
-  float ox, oy, oz;
-  float dx[S], dy[S], dz[S], ix[S], iy[S], iz[S];
+  using T = typename C::T;
+  T ox, oy, oz;
+  T dx[S], dy[S], dz[S], ix[S], iy[S], iz[S];
   int skip[S];
 
   __device__ __forceinline__ RaySets(const float* __restrict__ o,
                                      const float* __restrict__ dirs, int R,
                                      int r, bool live, const Skips& skips) {
-    ox = oy = oz = 0.f;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      dx[s] = dy[s] = dz[s] = 0.f;
-      skip[s] = skips.v[s];
-    }
+    float fo[3] = {0.f, 0.f, 0.f};
     if (live) {
-      ox = o[3 * r]; oy = o[3 * r + 1]; oz = o[3 * r + 2];
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const size_t k = 3 * ((size_t)s * R + r);
-        dx[s] = dirs[k]; dy[s] = dirs[k + 1]; dz[s] = dirs[k + 2];
-      }
+      fo[0] = o[3 * r]; fo[1] = o[3 * r + 1]; fo[2] = o[3 * r + 2];
     }
+    ox = C::ld(fo[0]); oy = C::ld(fo[1]); oz = C::ld(fo[2]);
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      ix[s] = safe_inv(dx[s]); iy[s] = safe_inv(dy[s]);
-      iz[s] = safe_inv(dz[s]);
+      float fd[3] = {0.f, 0.f, 0.f};
+      skip[s] = skips.v[s];
+      if (live) {
+        const size_t k = 3 * ((size_t)s * R + r);
+        fd[0] = dirs[k]; fd[1] = dirs[k + 1]; fd[2] = dirs[k + 2];
+      }
+      dx[s] = C::ld(fd[0]); dy[s] = C::ld(fd[1]); dz[s] = C::ld(fd[2]);
+      ix[s] = inv_dir<C>(dx[s]); iy[s] = inv_dir<C>(dy[s]);
+      iz[s] = inv_dir<C>(dz[s]);
     }
   }
 };
 
-// Add one sphere row p to acc.
-template <int S>
+// Add one sphere row p to acc. |oc|^2 - r2 is taken in C and widened, b
+// is summed in C and widened; the quadratic and the chord are float32.
+template <int S, class C>
 __device__ __forceinline__ void sphere_row(const float* p,
-                                           const RaySets<S>& q,
+                                           const RaySets<S, C>& q,
                                            float (&acc)[S]) {
+  using T = typename C::T;
   const int tgt = as_id(p[4]);
   const float dens = p[5];
-  float ocx = q.ox - p[0], ocy = q.oy - p[1], ocz = q.oz - p[2];
-  float cc = (ocx * ocx + ocy * ocy + ocz * ocz) - p[3];
+  const T ocx = C::sub(q.ox, C::ld(p[0])), ocy = C::sub(q.oy, C::ld(p[1])),
+          ocz = C::sub(q.oz, C::ld(p[2]));
+  const float cc =
+      C::up(C::sub(dot3<C>(ocx, ocy, ocz, ocx, ocy, ocz), C::ld(p[3])));
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    float b = ocx * q.dx[s] + ocy * q.dy[s] + ocz * q.dz[s];
+    float b = C::up(dot3<C>(ocx, ocy, ocz, q.dx[s], q.dy[s], q.dz[s]));
     float disc = b * b - cc;
     bool hit = disc >= 0.0f;
     float sq = sqrtf(hit ? disc : 1.0f);
@@ -105,18 +115,22 @@ __device__ __forceinline__ void sphere_row(const float* p,
 }
 
 // Add one AABB row p to acc.
-template <int S>
-__device__ __forceinline__ void aabb_row(const float* p, const RaySets<S>& q,
+template <int S, class C>
+__device__ __forceinline__ void aabb_row(const float* p,
+                                         const RaySets<S, C>& q,
                                          float (&acc)[S]) {
+  using T = typename C::T;
   const int tgt = as_id(p[7]);
   const float dens = p[8];
   const bool ok = p[6] == 0.0f;
-  float mnx = p[0] - q.ox, mny = p[1] - q.oy, mnz = p[2] - q.oz;
-  float mxx = p[3] - q.ox, mxy = p[4] - q.oy, mxz = p[5] - q.oz;
+  const T mnx = field_minus<C>(p[0], q.ox), mny = field_minus<C>(p[1], q.oy),
+          mnz = field_minus<C>(p[2], q.oz);
+  const T mxx = field_minus<C>(p[3], q.ox), mxy = field_minus<C>(p[4], q.oy),
+          mxz = field_minus<C>(p[5], q.oz);
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     float tn, tf;
-    slab(mnx, mny, mnz, mxx, mxy, mxz, q.ix[s], q.iy[s], q.iz[s], tn, tf);
+    slab<C>(mnx, mny, mnz, mxx, mxy, mxz, q.ix[s], q.iy[s], q.iz[s], tn, tf);
     float chord = fmaxf(0.0f, tf - fmaxf(tn, 0.0f));
     bool valid = (tn <= tf) && (tf >= 0.0f) && tgt != q.skip[s] && ok;
     acc[s] = acc[s] + (valid ? chord : 0.0f) * dens;
@@ -124,30 +138,30 @@ __device__ __forceinline__ void aabb_row(const float* p, const RaySets<S>& q,
 }
 
 // Add one OBB row p to acc.
-template <int S>
-__device__ __forceinline__ void obb_row(const float* p, const RaySets<S>& q,
+template <int S, class C>
+__device__ __forceinline__ void obb_row(const float* p,
+                                        const RaySets<S, C>& q,
                                         float (&acc)[S]) {
+  using T = typename C::T;
   const int tgt = as_id(p[16]);
   const float dens = p[17];
   const bool ok = p[15] == 0.0f;
-  float lox, loy, loz;
-  mat_rotate(p + 6, q.ox - p[0], q.oy - p[1], q.oz - p[2], lox, loy, loz);
-  float mnx = -p[3] - lox, mny = -p[4] - loy, mnz = -p[5] - loz;
-  float mxx = p[3] - lox, mxy = p[4] - loy, mxz = p[5] - loz;
+  T mn[3], mx[3];
+  obb_terms<C>(p, q.ox, q.oy, q.oz, mn, mx);
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    float ldx, ldy, ldz;
-    mat_rotate(p + 6, q.dx[s], q.dy[s], q.dz[s], ldx, ldy, ldz);
+    T ldx, ldy, ldz;
+    mat_rotate<C>(p + 6, q.dx[s], q.dy[s], q.dz[s], ldx, ldy, ldz);
     float tn, tf;
-    slab(mnx, mny, mnz, mxx, mxy, mxz, safe_inv(ldx), safe_inv(ldy),
-         safe_inv(ldz), tn, tf);
+    slab<C>(mn[0], mn[1], mn[2], mx[0], mx[1], mx[2], inv_dir<C>(ldx),
+            inv_dir<C>(ldy), inv_dir<C>(ldz), tn, tf);
     float chord = fmaxf(0.0f, tf - fmaxf(tn, 0.0f));
     bool valid = (tn <= tf) && (tf >= 0.0f) && tgt != q.skip[s] && ok;
     acc[s] = acc[s] + (valid ? chord : 0.0f) * dens;
   }
 }
 
-template <int S>
+template <int S, class C>
 __global__ void __launch_bounds__(BLOCK)
 multi_chord_kernel(const float* __restrict__ o, const float* __restrict__ dirs,
                    int R, Skips skips, const float* __restrict__ sph, int ns,
@@ -157,7 +171,7 @@ multi_chord_kernel(const float* __restrict__ o, const float* __restrict__ dirs,
   __shared__ __align__(16) float tile[TILE * OBB_W];
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = r < R;
-  const RaySets<S> q(o, dirs, R, r, live, skips);
+  const RaySets<S, C> q(o, dirs, R, r, live, skips);
   float acc[S];
 #pragma unroll
   for (int s = 0; s < S; ++s) acc[s] = 0.f;
@@ -168,7 +182,9 @@ multi_chord_kernel(const float* __restrict__ o, const float* __restrict__ dirs,
     load_tile(tile, sph, base, n, SPH_W);
     __syncthreads();
     if (live) {
-      for (int j = 0; j < n; ++j) sphere_row(tile + j * SPH_W, q, acc);
+      for (int j = 0; j < n; ++j) {
+        sphere_row<S, C>(tile + j * SPH_W, q, acc);
+      }
     }
   }
   for (int base = 0; base < na; base += TILE) {
@@ -177,7 +193,9 @@ multi_chord_kernel(const float* __restrict__ o, const float* __restrict__ dirs,
     load_tile(tile, aabb, base, n, AABB_W);
     __syncthreads();
     if (live) {
-      for (int j = 0; j < n; ++j) aabb_row(tile + j * AABB_W, q, acc);
+      for (int j = 0; j < n; ++j) {
+        aabb_row<S, C>(tile + j * AABB_W, q, acc);
+      }
     }
   }
   for (int base = 0; base < no; base += TILE) {
@@ -186,7 +204,9 @@ multi_chord_kernel(const float* __restrict__ o, const float* __restrict__ dirs,
     load_tile(tile, obb, base, n, OBB_W);
     __syncthreads();
     if (live) {
-      for (int j = 0; j < n; ++j) obb_row(tile + j * OBB_W, q, acc);
+      for (int j = 0; j < n; ++j) {
+        obb_row<S, C>(tile + j * OBB_W, q, acc);
+      }
     }
   }
   if (live) {
@@ -217,7 +237,7 @@ __device__ __forceinline__ void walk_rows(float* tile, const float* tab,
 // rays c G .. c G + G - 1, block rank k the rows
 // [k rows / K, (k + 1) rows / K) of the scan order (rows = ns + na + no;
 // ops/cuda/fused.py::chord_chunks).
-template <int S>
+template <int S, class C>
 __global__ void __launch_bounds__(BLOCK)
 multi_chord_split_kernel(const float* __restrict__ o,
                          const float* __restrict__ dirs, int R, Skips skips,
@@ -233,7 +253,7 @@ multi_chord_split_kernel(const float* __restrict__ o,
   const int rank = blockIdx.x % K;
   const int r = (blockIdx.x / K) * G + g;
   const bool live = r < R;
-  const RaySets<S> q(o, dirs, R, r, live, skips);
+  const RaySets<S, C> q(o, dirs, R, r, live, skips);
   float acc[S];
 #pragma unroll
   for (int s = 0; s < S; ++s) acc[s] = 0.f;
@@ -242,13 +262,13 @@ multi_chord_split_kernel(const float* __restrict__ o,
   const int lo = (int)((long long)rank * rows / K);
   const int hi = (int)((long long)(rank + 1) * rows / K);
   walk_rows<SPH_W>(tile, sph, max(lo, 0), min(hi, ns), lane, L, live,
-                   [&](const float* p) { sphere_row(p, q, acc); });
+                   [&](const float* p) { sphere_row<S, C>(p, q, acc); });
   walk_rows<AABB_W>(tile, aabb, max(lo, ns) - ns, min(hi, ns + na) - ns,
                     lane, L, live,
-                    [&](const float* p) { aabb_row(p, q, acc); });
+                    [&](const float* p) { aabb_row<S, C>(p, q, acc); });
   walk_rows<OBB_W>(tile, obb, max(lo, ns + na) - ns - na, hi - ns - na,
                    lane, L, live,
-                   [&](const float* p) { obb_row(p, q, acc); });
+                   [&](const float* p) { obb_row<S, C>(p, q, acc); });
 
   // A ray's lanes within a warp: a shuffle tree, the sum in the ray's
   // first lane (of each warp, where a ray spans several).
@@ -305,19 +325,19 @@ multi_chord_split_kernel(const float* __restrict__ o,
   cluster.sync();
 }
 
-template <int S>
+template <int S, class C>
 static cudaError_t launch(const float* o, const float* dirs, int R,
                           const Skips& sk, const float* sph, int ns,
                           const float* aabb, int na, const float* obb, int no,
                           int G, int K, float* out, cudaStream_t stream) {
   if (G == BLOCK && K == 1) {
-    multi_chord_kernel<S><<<(R + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
+    multi_chord_kernel<S, C><<<(R + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
         o, dirs, R, sk, sph, ns, aabb, na, obb, no, out);
     return cudaGetLastError();
   }
   const long long blocks = (long long)((R + G - 1) / G) * K;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  auto kernel = multi_chord_split_kernel<S>;
+  auto kernel = multi_chord_split_kernel<S, C>;
   if (K > 8) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -341,17 +361,15 @@ static cudaError_t launch(const float* o, const float* dirs, int R,
 
 #define LAUNCH_SETS(N)                                                   \
   case N:                                                                \
-    err = launch<N>(o, dirs, R, sk, sph, ns, aabb, na, obb, no, G, K,    \
-                    out, (cudaStream_t)stream);                          \
+    err = launch<N, C>(o, dirs, R, sk, sph, ns, aabb, na, obb, no, G, K, \
+                       out, (cudaStream_t)stream);                       \
     break;
 
-// out [R, S]; dirs [S, R, 3]. (G, K): G rays per block, a power of two
-// up to BLOCK, and K blocks per cluster, 1 to MAX_CLUSTER; (BLOCK, 1) is
-// one thread per ray (multi_chord_kernel).
-extern "C" int multi_chord(const float* o, const float* dirs, int R, int S,
-                           const int* skips, const float* sph, int ns,
-                           const float* aabb, int na, const float* obb,
-                           int no, int G, int K, float* out, void* stream) {
+template <class C>
+static int launch_sets(const float* o, const float* dirs, int R, int S,
+                       const int* skips, const float* sph, int ns,
+                       const float* aabb, int na, const float* obb, int no,
+                       int G, int K, float* out, void* stream) {
   if (S < 1 || S > MAX_SETS || G < 1 || G > BLOCK || BLOCK % G || K < 1 ||
       K > MAX_CLUSTER) {
     return (int)cudaErrorInvalidValue;
@@ -367,4 +385,26 @@ extern "C" int multi_chord(const float* o, const float* dirs, int R, int S,
     LAUNCH_SETS(13) LAUNCH_SETS(14) LAUNCH_SETS(15) LAUNCH_SETS(16)
   }
   return (int)err;
+}
+
+// out [R, S]; dirs [S, R, 3]. (G, K): G rays per block, a power of two
+// up to BLOCK, and K blocks per cluster, 1 to MAX_CLUSTER; (BLOCK, 1) is
+// one thread per ray (multi_chord_kernel).
+extern "C" int multi_chord(const float* o, const float* dirs, int R, int S,
+                           const int* skips, const float* sph, int ns,
+                           const float* aabb, int na, const float* obb,
+                           int no, int G, int K, float* out, void* stream) {
+  return launch_sets<F32>(o, dirs, R, S, skips, sph, ns, aabb, na, obb, no,
+                          G, K, out, stream);
+}
+
+// The bfloat16 tier: the same arguments and launch shapes (float32 rays
+// and tables, rounded in the kernel; the sums float32).
+extern "C" int multi_chord_bf16(const float* o, const float* dirs, int R,
+                                int S, const int* skips, const float* sph,
+                                int ns, const float* aabb, int na,
+                                const float* obb, int no, int G, int K,
+                                float* out, void* stream) {
+  return launch_sets<BF16>(o, dirs, R, S, skips, sph, ns, aabb, na, obb, no,
+                           G, K, out, stream);
 }

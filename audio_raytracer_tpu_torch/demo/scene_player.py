@@ -12,10 +12,16 @@ Usage:
   python -m audio_raytracer_tpu_torch.demo.scene_player      # sample scene
   python -m audio_raytracer_tpu_torch.demo.scene_player --scene my.json \\
       --frames 120 --render-wav out.wav --npz trace.npz
+  python -m audio_raytracer_tpu_torch.demo.scene_player --mesh 2x2
 
-The JAX player's ``--mesh`` (serving over a device mesh) is not ported
-yet (ROADMAP item 10b): it needs the runtime's meshed mode. The sharded
-forward itself is ``parallel/sharded.py``.
+``--mesh RxP`` serves through the meshed loop
+(``AsyncRaytraceLoop(mesh=)``), one process per rank: rank 0 animates
+the scene and writes the history, the WAV and the viz, the other ranks
+serve. The ranks come from ``parallel/distributed.py::run_meshed``:
+under torchrun or the ART_* variables each process is a rank; otherwise
+the player starts R x P local ranks, NCCL with one card per rank where
+there are cards enough, else gloo with the ranks sharing the one
+device. Its first log line says which.
 """
 
 from __future__ import annotations
@@ -37,9 +43,19 @@ from audio_raytracer_tpu_torch.types import TargetSettings, resolve_device
 
 def simulate(loaded, frames=60, dt=1.0 / 60.0, backend="kernel",
              listener_path=None, verbose=True, viz_every=0, viz_path=None,
-             device="cuda"):
+             device="cuda", mesh=None):
     """Run the frame loop on ``device``; returns the per-frame settings
     history as numpy arrays on the host.
+
+    mesh: this rank's ('rays', 'prims') ``parallel/mesh.py::Mesh``; the
+    loop then serves through the sharded forward on ``mesh.device``
+    (``AsyncRaytraceLoop(mesh=)``). Every rank calls ``simulate`` with
+    the same document and ``frames``: rank 0 animates, ticks with the
+    listener's position and returns the history; the other ranks only
+    serve its ticks and return None. Muffle values depend on
+    ``num_accum_batches`` by reference semantics (the permeation
+    overwrite writes one slot per thread batch), and the meshed loop
+    takes one batch per ray shard.
 
     The loop is synchronous (``compute_async=False``), as in the JAX
     player, so the history is deterministic: each frame's settings are
@@ -55,9 +71,15 @@ def simulate(loaded, frames=60, dt=1.0 / 60.0, backend="kernel",
     WHILE the sim runs, Audio/AudioRayTracer.cs:291-355); the frame index
     is appended to ``viz_path`` (default "frame.png" -> frame_0042.png).
     """
-    dev = resolve_device(device)
+    if mesh is not None and torch.distributed.get_rank() != 0:
+        loop = AsyncRaytraceLoop(None, loaded.cfg, backend=backend,
+                                 compute_async=False, mesh=mesh)
+        for _ in range(frames):
+            loop.tick()
+        return None
+    dev = resolve_device(device) if mesh is None else mesh.device
     loop = AsyncRaytraceLoop(loaded.registry, loaded.cfg, backend=backend,
-                             compute_async=False, device=dev)
+                             compute_async=False, device=dev, mesh=mesh)
     if listener_path is None and loaded.listener_animation is not None:
         anim = loaded.listener_animation
 
@@ -201,7 +223,7 @@ def render_wav(loaded, history, path, sample_rate=48000, dt=1.0 / 60.0,
         w.writeframes(pcm16.tobytes())
 
 
-def main(argv=None):
+def _parser():
     p = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -226,20 +248,32 @@ def main(argv=None):
     p.add_argument("--orbit", action="store_true",
                    help="listener orbits the origin (PlayerController "
                         "stand-in)")
-    args = p.parse_args(argv)
-    try:
-        dev = resolve_device(args.device)
-    except RuntimeError as e:
-        p.error(str(e))
+    p.add_argument("--mesh", metavar="RxP",
+                   help="serve through an R x P ('rays', 'prims') mesh of "
+                        "rank processes (module docstring)")
+    return p
 
+
+def _play(args, mesh=None):
+    """Load the scene, run ``simulate`` on ``args.device`` (on
+    ``mesh.device`` over a mesh) and write the outputs; returns the JSON
+    summary (None on a mesh's other ranks)."""
     from audio_raytracer_tpu_torch.demo.sample_scene import sample_scene_dict
     from audio_raytracer_tpu_torch.demo.scene_format import (
         build_registry,
         load_scene_file,
     )
 
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     loaded = (load_scene_file(args.scene) if args.scene
               else build_registry(sample_scene_dict()))
+    leader = mesh is None or torch.distributed.get_rank() == 0
+    if mesh is not None and loaded.cfg.ray_count % mesh.ray_shards:
+        rc = -(-loaded.cfg.ray_count // mesh.ray_shards) * mesh.ray_shards
+        if leader:
+            print(f"rounding ray_count {loaded.cfg.ray_count} -> {rc} for "
+                  f"{mesh.ray_shards} ray shards", file=sys.stderr)
+        loaded.cfg = dataclasses.replace(loaded.cfg, ray_count=rc)
 
     listener_path = None
     if args.orbit:
@@ -252,9 +286,12 @@ def main(argv=None):
     history = simulate(loaded, frames=args.frames, dt=args.dt,
                        backend=args.backend, listener_path=listener_path,
                        viz_every=args.viz_every, viz_path=args.viz,
-                       device=dev)
+                       device=dev, mesh=mesh)
+    if not leader:
+        loaded.registry.close()
+        return None
 
-    print(json.dumps({
+    summary = {
         "frames": args.frames,
         "targets": loaded.target_names,
         "muffle_mean": np.round(history["muffle"].mean(axis=0), 4).tolist(),
@@ -267,8 +304,8 @@ def main(argv=None):
         "frame_ms_median": round(float(np.median(history["frame_ms"])), 2),
         "backend": args.backend,
         "device": str(dev),
-    }), flush=True)
-
+        "mesh": args.mesh,
+    }
     if args.npz:
         np.savez(args.npz, **history)
         print(f"saved history to {args.npz}", file=sys.stderr)
@@ -285,6 +322,33 @@ def main(argv=None):
                    device=dev)
         print(f"wrote {args.viz}", file=sys.stderr)
     loaded.registry.close()
+    return summary
+
+
+def main(argv=None, mesh_timeout=None):
+    """The CLI. ``mesh_timeout``: seconds before the local ranks of
+    ``--mesh`` are stopped (None: no deadline), for callers that must
+    not wait on a hung rank."""
+    from audio_raytracer_tpu_torch.parallel import distributed
+
+    p = _parser()
+    args = p.parse_args(argv)
+    try:
+        resolve_device(args.device)
+        if args.mesh:
+            distributed.parse_mesh(args.mesh)
+    except (RuntimeError, ValueError) as e:
+        p.error(str(e))
+    if args.mesh:
+        summary = distributed.run_meshed(
+            _play, args.mesh, (args,), device=args.device,
+            log=lambda m: print(f"scene_player: {m}", file=sys.stderr,
+                                flush=True),
+            timeout=mesh_timeout)
+    else:
+        summary = _play(args)
+    if summary is not None:
+        print(json.dumps(summary), flush=True)
     return 0
 
 

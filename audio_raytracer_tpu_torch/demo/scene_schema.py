@@ -15,9 +15,9 @@ is built, and raises ``SceneValidationError`` naming the exact document
 path (e.g. ``scene.colliders[3].half_extents``) instead of letting a
 typo'd key default silently or explode deep inside a traced frame.
 The allowed ``trace`` keys are ``TraceConfig``'s fields; a document
-asking for ``compute_dtype: "bfloat16"`` passes the schema and is
-refused by ``TraceConfig`` itself (NotImplementedError: the bfloat16
-tier is not ported).
+asking for ``compute_dtype: "bfloat16"`` runs the kernels' bfloat16
+tier, and ``TraceConfig`` itself refuses any other compute type
+(ValueError).
 """
 
 from __future__ import annotations

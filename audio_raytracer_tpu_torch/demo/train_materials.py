@@ -30,9 +30,17 @@ is resumable (params + optimizer moments + step counter round-trip,
 
 The noise of --init noisy and of the pose perturbation comes from a
 torch.Generator seeded by --seed: the same start on every device, not
-the JAX package's. The JAX CLI's --mesh (training over a device mesh)
-is not ported yet (ROADMAP item 10b); the sharded materials step it
-would call is parallel/train.py::make_sharded_train_step.
+the JAX package's.
+
+--mesh RxP trains the materials over an R x P ('rays', 'prims') mesh of
+rank processes (parallel/train.py::make_sharded_train_step, the
+materials split over the prim shards): the scene is padded per prim
+shard and the parameters re-derived on the padded scene; the MAE covers
+the active primitives only. Rank 0 logs and writes the checkpoint (the
+parameters and Adam moments gathered from every shard); --resume
+restores every rank from it. The ranks come from torchrun or the ART_*
+variables, or are started locally
+(``parallel/distributed.py::run_meshed``).
 """
 
 from __future__ import annotations
@@ -200,7 +208,7 @@ def _noisy(truth, gen):
                        obb=noisy(truth.obb))
 
 
-def main(argv=None):
+def _parser():
     p = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -218,6 +226,9 @@ def main(argv=None):
                    help="start from AudioMaterialProperties.Default "
                         "{0,1,1} or from the authored values + noise")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--mesh", metavar="RxP",
+                   help="train sharded over an R x P ('rays', 'prims') "
+                        "mesh of rank processes (params split over prims)")
     p.add_argument("--checkpoint", metavar="DIR",
                    help="save {params, opt_state, step} here")
     p.add_argument("--ckpt-every", type=int, default=50)
@@ -229,28 +240,72 @@ def main(argv=None):
                         "docstring)")
     p.add_argument("--pose-perturbation", type=float, default=0.8,
                    help="seeded perturbation magnitude for --recover-pose")
-    args = p.parse_args(argv)
-    try:
-        dev = resolve_device(args.device)
-    except RuntimeError as e:
-        p.error(str(e))
+    return p
 
-    if args.recover_pose:
-        _recover_pose(args, dev)
-        return 0
 
+def _gather_prims(tensors, mesh):
+    """Each tensor's full leading axis from this rank's prim shard of it
+    (zeros elsewhere, summed over the ``prims`` group)."""
+    out = []
+    for x in tensors:
+        per = x.shape[0]
+        full = x.new_zeros((per * mesh.prim_shards,) + tuple(x.shape[1:]))
+        full[mesh.prim_index * per:(mesh.prim_index + 1) * per] = x.detach()
+        out.append(full)
+    from audio_raytracer_tpu_torch.parallel import comm
+
+    return comm.all_reduce_sums(out, mesh.prims)
+
+
+def _full_state(params, opt, mesh):
+    """(the padded scene's parameters, the optimizer's state_dict with
+    its moments) gathered from every prim shard (a collective)."""
+    from audio_raytracer_tpu_torch.models.differentiable import SceneParams
+    from audio_raytracer_tpu_torch.types import Materials
+
+    leaves = _gather_prims(params.leaves(), mesh)
+    full = SceneParams(*(Materials(*leaves[3 * i:3 * i + 3])
+                         for i in range(3)))
+    sd = opt.state_dict()
+    keys = sorted(sd["state"])
+    moments = _gather_prims([sd["state"][k][m] for k in keys
+                             for m in ("exp_avg", "exp_avg_sq")], mesh)
+    state = {k: dict(sd["state"][k], exp_avg=moments[2 * i],
+                     exp_avg_sq=moments[2 * i + 1])
+             for i, k in enumerate(keys)}
+    return full, dict(sd, state=state)
+
+
+def _shard_state(opt_state, mesh):
+    """A gathered optimizer state_dict cut to this rank's prim shard."""
+    from audio_raytracer_tpu_torch.parallel.mesh import shard_rows
+
+    def cut(st):
+        return {k: shard_rows(v, mesh).clone() if k != "step" else v
+                for k, v in st.items()}
+
+    return dict(opt_state, state={k: cut(v)
+                                  for k, v in opt_state["state"].items()})
+
+
+def _train(args, mesh=None):
+    """The materials calibration on ``args.device`` (on ``mesh.device``
+    over a mesh); returns the JSON summary (None on a mesh's other
+    ranks)."""
     from audio_raytracer_tpu_torch.models.differentiable import (
         SceneParams,
         adam,
         loudness_map,
         make_train_step,
     )
-    from audio_raytracer_tpu_torch.types import Materials
+    from audio_raytracer_tpu_torch.types import Materials, tensors_of
     from audio_raytracer_tpu_torch.utils.checkpoint import (
         restore_checkpoint,
         save_checkpoint,
     )
 
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    leader = mesh is None or torch.distributed.get_rank() == 0
     loaded, scene, cfg, origin, dirs = _load(args, dev)
 
     # Target = the authored materials' loudness map (the "recording").
@@ -268,42 +323,132 @@ def main(argv=None):
 
     active_counts = {"sphere": scene.spheres.count,
                      "aabb": scene.aabbs.count, "obb": scene.obbs.count}
-    step, init = make_train_step(cfg, optimizer=adam(args.lr),
-                                 backend=args.backend, device=dev)
+    local, local_dirs = scene, dirs
+    if mesh is None:
+        step, init = make_train_step(cfg, optimizer=adam(args.lr),
+                                     backend=args.backend, device=dev)
+    else:
+        from audio_raytracer_tpu_torch.parallel import comm
+        from audio_raytracer_tpu_torch.parallel.distributed import (
+            local_ray_slice,
+        )
+        from audio_raytracer_tpu_torch.parallel.mesh import (
+            pad_scene_for_prim_shards,
+            shard_scene,
+        )
+        from audio_raytracer_tpu_torch.parallel.train import (
+            make_sharded_train_step,
+            shard_params,
+        )
+
+        if cfg.ray_count % mesh.ray_shards:
+            raise ValueError(f"--rays {cfg.ray_count} must divide by "
+                             f"{mesh.ray_shards} ray shards")
+        # Every rank trains toward rank 0's recording, bit for bit.
+        for t in tensors_of(target):
+            comm.broadcast(t, src=0, group=mesh.world)
+        scene = pad_scene_for_prim_shards(scene, mesh.prim_shards)
+        # Re-derive the parameters on the padded scene: the padding's
+        # entries start at the truth (inactive, they get no gradient).
+        truth = SceneParams.from_scene(scene)
+        params = SceneParams(*(Materials(*(
+            torch.cat([p, t[p.shape[0]:]])
+            for p, t in zip(params.leaves()[3 * i:3 * i + 3],
+                            truth.leaves()[3 * i:3 * i + 3])))
+            for i in range(3)))
+        local = shard_scene(scene, mesh)
+        local_dirs = dirs[local_ray_slice(cfg.ray_count, mesh)]
+        step, init = make_sharded_train_step(cfg, mesh,
+                                             optimizer=adam(args.lr),
+                                             backend=args.backend)
+
     start = 0
     opt_state = None
     if args.resume and args.checkpoint:
         state = restore_checkpoint(
-            args.checkpoint, {"params": params,
-                              "opt_state": init(params).state_dict(),
+            args.checkpoint, {"params": params, "opt_state": None,
                               "step": 0})
         params, opt_state = state["params"], state["opt_state"]
         start = int(state["step"])
-        print(f"resumed from step {start}", file=sys.stderr)
+        if leader:
+            print(f"resumed from step {start}", file=sys.stderr)
+    if mesh is not None:
+        params = shard_params(params, mesh)
+        if opt_state is not None:
+            opt_state = _shard_state(opt_state, mesh)
     opt = init(params)
     if opt_state is not None:
         opt.load_state_dict(opt_state)
 
-    loss = float("nan")
+    def full_state():
+        if mesh is None:
+            return params, opt.state_dict()
+        return _full_state(params, opt, mesh)
+
+    loss = first_loss = float("nan")
     for i in range(start, args.steps):
-        params, opt, loss = step(params, opt, scene, origin, dirs, target)
-        if i % args.log_every == 0 or i == args.steps - 1:
+        params, opt, loss = step(params, opt, local, origin, local_dirs,
+                                 target)
+        if i == start:
+            first_loss = float(loss)
+        if leader and (i % args.log_every == 0 or i == args.steps - 1):
             print(f"step {i:4d}: loss {float(loss):.3e}", file=sys.stderr)
         if args.checkpoint and ((i + 1) % args.ckpt_every == 0
                                 or i == args.steps - 1):
-            save_checkpoint(args.checkpoint,
-                            {"params": params, "opt_state": opt.state_dict(),
-                             "step": i + 1})
+            full, opt_full = full_state()
+            if leader:
+                save_checkpoint(args.checkpoint,
+                                {"params": full, "opt_state": opt_full,
+                                 "step": i + 1})
 
-    errs = _material_errors(params, truth, active_counts)
-    print(json.dumps({
+    full, _ = full_state()
+    loaded.registry.close()
+    if not leader:
+        return None
+    errs = _material_errors(full, truth, active_counts)
+    return {
         "steps": args.steps,
+        "start_step": start,
+        "first_loss": first_loss,
         "final_loss": float(loss),
         "material_mae": {k: round(v, 4) for k, v in errs.items()},
         "backend": args.backend,
         "device": str(dev),
-    }), flush=True)
-    loaded.registry.close()
+        "mesh": args.mesh,
+    }
+
+
+def main(argv=None, mesh_timeout=None):
+    """The CLI. ``mesh_timeout``: seconds before the local ranks of
+    ``--mesh`` are stopped (None: no deadline), for callers that must
+    not wait on a hung rank."""
+    from audio_raytracer_tpu_torch.parallel import distributed
+
+    p = _parser()
+    args = p.parse_args(argv)
+    try:
+        dev = resolve_device(args.device)
+        if args.mesh:
+            distributed.parse_mesh(args.mesh)
+            if args.recover_pose:
+                raise ValueError("--mesh trains materials only (as the JAX "
+                                 "CLI): drop --recover-pose")
+    except (RuntimeError, ValueError) as e:
+        p.error(str(e))
+
+    if args.recover_pose:
+        _recover_pose(args, dev)
+        return 0
+    if args.mesh:
+        summary = distributed.run_meshed(
+            _train, args.mesh, (args,), device=args.device,
+            log=lambda m: print(f"train_materials: {m}", file=sys.stderr,
+                                flush=True),
+            timeout=mesh_timeout)
+    else:
+        summary = _train(args)
+    if summary is not None:
+        print(json.dumps(summary), flush=True)
     return 0
 
 

@@ -39,17 +39,19 @@ Tensor = torch.Tensor
 BACKENDS = {"kernel": KernelBackend, "dense": DenseBackend}
 
 
-def make_backend(scene: Scene, backend, **kernel_kw):
+def make_backend(scene: Scene, backend, compute_dtype=torch.float32,
+                 **kernel_kw):
     """The intersection engine for a backend name ("kernel" or "dense"),
-    or ``backend`` itself when it is an engine object. ``kernel_kw`` go to
-    ``KernelBackend`` (``differentiable``)."""
+    or ``backend`` itself when it is an engine object. ``compute_dtype``
+    and ``kernel_kw`` (``differentiable``) go to ``KernelBackend``; the
+    dense tier ignores the compute type, as the JAX package's does."""
     if not isinstance(backend, str):
         return backend
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; "
                          f"expected one of {sorted(BACKENDS)}")
     if backend == "kernel":
-        return KernelBackend(scene, **kernel_kw)
+        return KernelBackend(scene, compute_dtype=compute_dtype, **kernel_kw)
     return BACKENDS[backend](scene)
 
 
@@ -63,12 +65,12 @@ def forward(origin: Tensor, directions: Tensor, scene: Scene,
     AudioPermeationJobBatched -> ProcessAudioDataJob. ``backend``:
     "kernel" (the CUDA kernels; their plain versions on the CPU) or
     "dense" (plain [rays, prims] grids). Every input must lie on
-    ``device``.
+    ``device``. The kernel engine runs in ``cfg.compute_dtype``'s tier.
     """
     dev = resolve_device(device)
     check_device(dev, origin=origin, directions=directions,
                  scene=scene.target_positions)
-    be = make_backend(scene, backend)
+    be = make_backend(scene, backend, cfg.compute_torch_dtype)
     if scene.num_primitives == 0:
         be = None  # trace / permeation handle the empty scene
     result = trace_op.trace(origin, directions, scene, cfg,

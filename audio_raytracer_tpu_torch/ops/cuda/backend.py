@@ -26,6 +26,14 @@ ops/pallas/backend.py:59-118) gradients flow at O(R + P) memory:
 
 Every kernel reads detached inputs. Forward values are those of
 ``differentiable=False``.
+
+``compute_dtype=torch.bfloat16`` is the bfloat16 tier of JAX
+``PallasBackend(compute_dtype=jnp.bfloat16)`` (ops/pallas/backend.py:
+94-118): it reaches B1 (``closest_hit``, ``closest_t``,
+``local_closest``), B2 (``multi_occluded``) and B3
+(``multi_permeation_loss``); the single-set ``occluded`` and
+``permeation_loss`` (B6, B7) stay float32, and ``differentiable=True``
+forces float32.
 """
 
 from __future__ import annotations
@@ -111,9 +119,13 @@ class KernelBackend:
     # multi_occluded's init bits).
     supports_block_skip = True
 
-    def __init__(self, scene: Scene, differentiable: bool = False):
+    def __init__(self, scene: Scene, differentiable: bool = False,
+                 compute_dtype=torch.float32):
         self.scene = scene
         self.differentiable = differentiable
+        # The chord adjoints and the winner-t recompute are float32 only.
+        self.compute_dtype = (torch.float32 if differentiable
+                              else K.check_compute_dtype(compute_dtype))
         self.total = scene.num_primitives
         self.fields = prepare_fields(scene)
         if self.total:
@@ -133,7 +145,8 @@ class KernelBackend:
         OBB order, a miss clamped to the last row): the local-engine
         protocol of PrimShardedBackend. No gradient."""
         t, rank = K.run_closest_hit(self.fields, o.detach().contiguous(),
-                                    d.detach().contiguous(), alive)
+                                    d.detach().contiguous(), alive,
+                                    self.compute_dtype)
         return t, torch.clamp(rank, max=self.total - 1).long()
 
     def attr_rows(self, idx: Tensor) -> Tensor:
@@ -166,7 +179,8 @@ class KernelBackend:
         if self.total == 0:
             return torch.full(o.shape[:-1], float("inf"), device=o.device)
         return K.run_closest_hit(self.fields, o.detach().contiguous(),
-                                 d.detach().contiguous())[0]
+                                 d.detach().contiguous(),
+                                 compute_dtype=self.compute_dtype)[0]
 
     def _densities(self):
         sc = self.scene
@@ -203,7 +217,7 @@ class KernelBackend:
         return F.run_multi_any_hit(self.fields, o.detach().contiguous(),
                                    [x.detach() for x in dirs],
                                    limits.detach().contiguous(), tuple(skips),
-                                   init_occ.contiguous())
+                                   init_occ.contiguous(), self.compute_dtype)
 
     def multi_permeation_loss(self, o, dirs, skips) -> Tensor:
         """Fused S-target permeation chords (B3): [R, S] float32; with
@@ -215,4 +229,5 @@ class KernelBackend:
             return multi_chord_loss(self.fields, skips, o, self._densities(),
                                     dirs)
         return F.run_multi_chord(self.fields, o.detach().contiguous(),
-                                 [x.detach() for x in dirs], tuple(skips))
+                                 [x.detach() for x in dirs], tuple(skips),
+                                 self.compute_dtype)

@@ -139,19 +139,25 @@ def load(name: str) -> ctypes.CDLL:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# The C entry points of each library and their argument types.
+_CLOSEST_HIT = [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P]
+_MULTI_ANY_HIT = [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P, _I,
+                  _I, _P, _P]
+_MULTI_CHORD = [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P]
+# The C entry points of each library and their argument types (B1-B3's
+# bfloat16 tier takes the float32 entry point's arguments).
 _SIGNATURES = {
     "closest_hit": {
-        "closest_hit": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P],
+        "closest_hit": _CLOSEST_HIT,
+        "closest_hit_bf16": _CLOSEST_HIT,
         "closest_hit_occupancy": [_P],
         "rcp_mismatches": [_P, _P]},
     "multi_any_hit": {
-        "multi_any_hit": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I,
-                          _P, _I, _I, _P, _P],
+        "multi_any_hit": _MULTI_ANY_HIT,
+        "multi_any_hit_bf16": _MULTI_ANY_HIT,
         "multi_any_hit_occupancy": [_I, _P]},
     "multi_chord": {
-        "multi_chord": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I,
-                        _P, _P]},
+        "multi_chord": _MULTI_CHORD,
+        "multi_chord_bf16": _MULTI_CHORD},
     "multi_chord_dens_bwd": {
         "multi_chord_dens_bwd": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
                                  _P, _P, _P, _P],

@@ -36,7 +36,9 @@ from audio_raytracer_tpu_torch.ops.cuda.kernels import (
     Fields,
     box_inv_dirs,
     box_terms,
+    check_compute_dtype,
     check_operands,
+    count_launch,
     ids,
     mat_rotate,
     occlusion_tables,
@@ -94,24 +96,30 @@ def _stack_dirs(dirs):
 
 
 def multi_any_hit_plain(fields: Fields, o: Tensor, dirs, limits: Tensor,
-                        skips, init_occ: Tensor) -> Tensor:
-    """Plain version of B2: [R, S] bool, init lanes True."""
+                        skips, init_occ: Tensor,
+                        compute_dtype=torch.float32) -> Tensor:
+    """Plain version of B2: [R, S] bool, init lanes True, in
+    ``compute_dtype``'s tier (the limits stay float32)."""
     R, S = limits.shape
     out = init_occ.clone()
+    geo = fields.rounded(compute_dtype)
+    o = o.to(compute_dtype)
+    dirs = [x.to(compute_dtype) for x in dirs]
     for c in ray_chunks(R, fields.total):
         ox, oy, oz = ray_cols(o, c)
         sets = [ray_cols(x, c) for x in dirs]
         lims = [limits[c, s:s + 1] for s in range(S)]
         occ = out[c]  # a view: updated in place
         if fields.counts[0]:
-            sph = fields.sph
-            tgt = ids(sph, S_TGT)
+            sph = geo.sph
+            tgt = ids(fields.sph, S_TGT)
             ocx, ocy, ocz = ox - sph[:, 0], oy - sph[:, 1], oz - sph[:, 2]
-            cc = (ocx * ocx + ocy * ocy + ocz * ocz) - sph[:, S_R2]
+            cc = ((ocx * ocx + ocy * ocy + ocz * ocz).float()
+                  - sph[:, S_R2].float())
             c_pos = cc >= 0.0
             for s, (dx, dy, dz) in enumerate(sets):
                 lim = lims[s]
-                h = ocx * dx + ocy * dy + ocz * dz
+                h = (ocx * dx + ocy * dy + ocz * dz).float()
                 hl = h + lim
                 q = lim * (hl + h) + cc
                 entering = c_pos & (h <= 0.0) & ((hl > 0.0) | (q < 0.0))
@@ -123,9 +131,9 @@ def multi_any_hit_plain(fields: Fields, o: Tensor, dirs, limits: Tensor,
             if not tab.shape[0]:
                 continue
             tgt = ids(tab, tcol)
-            terms = box_terms(fields, kind, ox, oy, oz)
+            terms = box_terms(geo, kind, ox, oy, oz)
             for s, (dx, dy, dz) in enumerate(sets):
-                inv = box_inv_dirs(fields, kind, dx, dy, dz)
+                inv = box_inv_dirs(geo, kind, dx, dy, dz)
                 t = slab_hit(*slab(*terms, *inv)) + tab[:, miss]
                 occ[:, s] |= ((t < lims[s]) & (tgt != skips[s])).any(dim=-1)
     return out
@@ -141,17 +149,22 @@ def occlusion_args(fields: Fields, skips, device) -> list:
 
 
 def run_multi_any_hit(fields: Fields, o: Tensor, dirs, limits: Tensor,
-                      skips, init_occ: Tensor) -> Tensor:
+                      skips, init_occ: Tensor,
+                      compute_dtype=torch.float32) -> Tensor:
     """B2: occlusion of S ray sets sharing the origins o [R, 3].
 
     dirs: S tensors [R, 3], normalized (the sphere test assumes
     |d| = 1); limits: [R, S] float32; skips: S ints (NO_SKIP or the
     target id whose colliders the set ignores); init_occ: [R, S] bool
     pre-resolved lanes. Returns [R, S] bool, init lanes True. One launch
-    per group of at most MAX_SETS sets."""
+    per group of at most MAX_SETS sets. ``compute_dtype``: torch.float32,
+    or torch.bfloat16 for the bfloat16 tier (``launches_bf16``)."""
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
     if on_cpu(o):
-        return multi_any_hit_plain(fields, o, dirs, limits, skips, init_occ)
+        return multi_any_hit_plain(fields, o, dirs, limits, skips, init_occ,
+                                   compute_dtype)
     lib = build.load("multi_any_hit")
+    fn = lib.multi_any_hit_bf16 if bf16 else lib.multi_any_hit
     dev = o.device
     R, S = limits.shape
     check_operands(dev, o, limits)
@@ -164,19 +177,19 @@ def run_multi_any_hit(fields: Fields, o: Tensor, dirs, limits: Tensor,
         occ = torch.empty((R, g.stop - g.start), dtype=torch.bool,
                           device=dev)
         keep, skips_ptr = skips_arg(skips[g])
-        err = lib.multi_any_hit(o.data_ptr(), stacked.data_ptr(),
-                                lim.data_ptr(), init.data_ptr(), R,
-                                g.stop - g.start, skips_ptr,
-                                *occlusion_args(fields, skips[g], dev),
-                                occ.data_ptr(), stream_of(dev))
+        err = fn(o.data_ptr(), stacked.data_ptr(), lim.data_ptr(),
+                 init.data_ptr(), R, g.stop - g.start, skips_ptr,
+                 *occlusion_args(fields, skips[g], dev), occ.data_ptr(),
+                 stream_of(dev))
         build.check("multi_any_hit", err)
         if R:
-            run_multi_any_hit.launches += 1
+            count_launch(run_multi_any_hit, bf16)
         parts.append(occ)
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 run_multi_any_hit.launches = 0
+run_multi_any_hit.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -185,16 +198,18 @@ run_multi_any_hit.launches = 0
 
 
 def _sphere_oc(sph, ox, oy, oz):
-    """(oc xyz, |oc|^2 - r2) grids shared by every set of one sphere."""
+    """(oc xyz, |oc|^2 - r2) grids shared by every set of one sphere; the
+    last taken in the compute type and widened to float32."""
     ocx, ocy, ocz = ox - sph[:, 0], oy - sph[:, 1], oz - sph[:, 2]
-    return ocx, ocy, ocz, (ocx * ocx + ocy * ocy + ocz * ocz) - sph[:, S_R2]
+    return ocx, ocy, ocz, ((ocx * ocx + ocy * ocy + ocz * ocz)
+                           - sph[:, S_R2]).float()
 
 
 def _sphere_chord(ocx, ocy, ocz, cc, dx, dy, dz) -> dict:
     """Chord of the unbounded ray through a sphere (half-b quadratic,
     |d| = 1) and the intermediates its adjoint needs (csrc/chord.cuh::
-    sphere_chord)."""
-    b = ocx * dx + ocy * dy + ocz * dz
+    sphere_chord); b is summed in the compute type, then widened."""
+    b = (ocx * dx + ocy * dy + ocz * dz).float()
     disc = b * b - cc
     hit = disc >= 0.0
     sq = torch.sqrt(torch.where(hit, disc, 1.0))
@@ -214,10 +229,15 @@ def _box_chord(terms, inv):
         (tn <= tf) & (tf >= 0.0)
 
 
-def multi_chord_plain(fields: Fields, o: Tensor, dirs, skips) -> Tensor:
-    """Plain version of B3: [R, S] float32 chord x density sums."""
+def multi_chord_plain(fields: Fields, o: Tensor, dirs, skips,
+                      compute_dtype=torch.float32) -> Tensor:
+    """Plain version of B3: [R, S] float32 chord x density sums, in
+    ``compute_dtype``'s tier (the chords and sums float32)."""
     R, S = o.shape[0], len(dirs)
     out = torch.zeros((R, S), device=o.device)
+    geo = fields.rounded(compute_dtype)
+    o = o.to(compute_dtype)
+    dirs = [x.to(compute_dtype) for x in dirs]
     for c in ray_chunks(R, fields.total):
         ox, oy, oz = ray_cols(o, c)
         sets = [ray_cols(x, c) for x in dirs]
@@ -225,7 +245,7 @@ def multi_chord_plain(fields: Fields, o: Tensor, dirs, skips) -> Tensor:
         if fields.counts[0]:
             sph = fields.sph
             tgt, dens = ids(sph, S_TGT), sph[:, S_DENS]
-            ocx, ocy, ocz, cc = _sphere_oc(sph, ox, oy, oz)
+            ocx, ocy, ocz, cc = _sphere_oc(geo.sph, ox, oy, oz)
             for s, (dx, dy, dz) in enumerate(sets):
                 c_ = _sphere_chord(ocx, ocy, ocz, cc, dx, dy, dz)
                 valid = c_["hit"] & (c_["t_exit"] >= 0.0) & (tgt != skips[s])
@@ -238,9 +258,9 @@ def multi_chord_plain(fields: Fields, o: Tensor, dirs, skips) -> Tensor:
                 continue
             tgt, dens = ids(tab, tcol), tab[:, dcol]
             ok = tab[:, miss] == 0.0
-            terms = box_terms(fields, kind, ox, oy, oz)
+            terms = box_terms(geo, kind, ox, oy, oz)
             for s, (dx, dy, dz) in enumerate(sets):
-                inv = box_inv_dirs(fields, kind, dx, dy, dz)
+                inv = box_inv_dirs(geo, kind, dx, dy, dz)
                 _, _, _, chord, meet = _box_chord(terms, inv)
                 valid = meet & (tgt != skips[s]) & ok
                 acc[:, s] += (torch.where(valid, chord, 0.0) * dens).sum(-1)
@@ -294,26 +314,31 @@ def sm_count(device) -> int:
 
 
 def launch_multi_chord(lib, fields: Fields, o: Tensor, stacked: Tensor,
-                       skips, out: Tensor, splits) -> None:
+                       skips, out: Tensor, splits, bf16: bool = False) -> None:
     """One launch of B3's kernel for the sets of ``stacked`` [S, R, 3]
     (S <= MAX_SETS) into ``out`` [R, S], in the launch shape ``splits`` =
-    (G, K) (``chord_splits``). Counts no launch; B7 launches it too."""
+    (G, K) (``chord_splits``); ``bf16``: its bfloat16 instantiation.
+    Counts no launch; B7 launches it too."""
     dev = o.device
     keep, skips_ptr = skips_arg(skips)
-    err = lib.multi_chord(o.data_ptr(), stacked.data_ptr(), o.shape[0],
-                          stacked.shape[0], skips_ptr,
-                          *table_args(fields, dev), *splits, out.data_ptr(),
-                          stream_of(dev))
+    fn = lib.multi_chord_bf16 if bf16 else lib.multi_chord
+    err = fn(o.data_ptr(), stacked.data_ptr(), o.shape[0], stacked.shape[0],
+             skips_ptr, *table_args(fields, dev), *splits, out.data_ptr(),
+             stream_of(dev))
     build.check("multi_chord", err)
 
 
-def run_multi_chord(fields: Fields, o: Tensor, dirs, skips) -> Tensor:
+def run_multi_chord(fields: Fields, o: Tensor, dirs, skips,
+                    compute_dtype=torch.float32) -> Tensor:
     """B3: permeation chord x density sums along the unbounded rays of S
     target sets sharing the origins o [R, 3]. dirs: S normalized [R, 3];
     skips: S target ids. Returns [R, S] float32. One launch per group of
-    at most MAX_SETS sets, each in the shape ``chord_splits`` picks."""
+    at most MAX_SETS sets, each in the shape ``chord_splits`` picks.
+    ``compute_dtype``: torch.float32, or torch.bfloat16 for the bfloat16
+    tier (``launches_bf16``; the sums stay float32)."""
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
     if on_cpu(o):
-        return multi_chord_plain(fields, o, dirs, skips)
+        return multi_chord_plain(fields, o, dirs, skips, compute_dtype)
     lib = build.load("multi_chord")
     dev = o.device
     R, S = o.shape[0], len(dirs)
@@ -324,14 +349,16 @@ def run_multi_chord(fields: Fields, o: Tensor, dirs, skips) -> Tensor:
         stacked = _stack_dirs(dirs[g])
         check_operands(dev, stacked)
         out = torch.empty((R, g.stop - g.start), device=dev)
-        launch_multi_chord(lib, fields, o, stacked, skips[g], out, splits)
+        launch_multi_chord(lib, fields, o, stacked, skips[g], out, splits,
+                           bf16)
         if R:
-            run_multi_chord.launches += 1
+            count_launch(run_multi_chord, bf16)
         parts.append(out)
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 run_multi_chord.launches = 0
+run_multi_chord.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,14 @@ The plain versions repeat the kernels' arithmetic operation for operation
 (same order, exact reciprocals), so on one device the two agree bit for
 bit except for the order of float sums. They work on ray chunks so their
 [rays, prims] grids stay within a few GB.
+
+B1, B2 and B3 also run in the bfloat16 tier (``compute_dtype=
+torch.bfloat16``, the JAX wrappers' ``dtype=jnp.bfloat16``): the rays and
+the tables' geometry are rounded to bfloat16, the geometry arithmetic runs
+on bfloat16 tensors (each op rounds once, as the kernels' instructions
+do), and the f32 islands of the JAX tier (``.float()`` below) hold the
+quadratic, the reciprocals, the compares and the sums. In float32 every
+rounding and widening below is the identity.
 """
 
 from __future__ import annotations
@@ -40,6 +48,28 @@ SPH_W, AABB_W, OBB_W = 8, 12, 20
 S_R2, S_TGT, S_DENS = 3, 4, 5  # sphere: cx cy cz r2 tgt dens
 A_MISS, A_TGT, A_DENS = 6, 7, 8  # aabb: min xyz, max xyz, miss tgt dens
 O_M, O_MISS, O_TGT, O_DENS = 6, 15, 16, 17  # obb: c xyz, h xyz, m 9, ...
+
+# The compute types of B1-B3 (the JAX tier's f32 and bf16).
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_compute_dtype(compute_dtype) -> torch.dtype:
+    """``compute_dtype`` if it is one of COMPUTE_DTYPES, else a
+    ValueError."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype}: expected "
+                         "torch.float32 or torch.bfloat16")
+    return compute_dtype
+
+
+def count_launch(wrapper, bf16: bool) -> None:
+    """One launch of ``wrapper``'s kernel: in ``launches_bf16`` for the
+    bfloat16 instantiation, else in ``launches``."""
+    if bf16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
+
 
 # Float operations per (live ray, primitive) in the B1 loop body, for the
 # op-count bound (the sphere counts only its always-executed part). B6
@@ -76,6 +106,15 @@ class Fields:
         if key not in self.derived:
             self.derived[key] = make()
         return self.derived[key]
+
+    def rounded(self, compute_dtype) -> "Fields":
+        """The tables rounded to ``compute_dtype`` (self in float32): the
+        geometry columns the plain versions read in the compute type. The
+        miss, target and density columns are read from ``self``."""
+        if compute_dtype == torch.float32:
+            return self
+        return self.cached(("rounded", compute_dtype), lambda: Fields(
+            *(t.to(compute_dtype) for t in (self.sph, self.aabb, self.obb))))
 
 
 # ---------------------------------------------------------------------------
@@ -169,15 +208,23 @@ def safe_inv(x: Tensor) -> Tensor:
     return 1.0 / torch.where(x.abs() < 1e-12, nudge, x)
 
 
+def inv_dir(x: Tensor) -> Tensor:
+    """``safe_inv`` in float32, rounded back to x's compute type (the f32
+    island of the JAX tier's ``_inv_dir``)."""
+    return safe_inv(x.float()).to(x.dtype)
+
+
 def slab(mnx, mny, mnz, mxx, mxy, mxz, ix, iy, iz):
-    """(t_near, t_far) from precomputed (bound - origin) terms."""
+    """(t_near, t_far) from precomputed (bound - origin) terms: products
+    and min / max chains in the inputs' compute type, the results
+    widened to float32."""
     t0x, t1x = mnx * ix, mxx * ix
     t0y, t1y = mny * iy, mxy * iy
     t0z, t1z = mnz * iz, mxz * iz
     mn, mx = torch.minimum, torch.maximum
     t_near = mx(mx(mn(t0x, t1x), mn(t0y, t1y)), mn(t0z, t1z))
     t_far = mn(mn(mx(t0x, t1x), mx(t0y, t1y)), mx(t0z, t1z))
-    return t_near, t_far
+    return t_near.float(), t_far.float()
 
 
 def slab_hit(t_near, t_far):
@@ -211,8 +258,8 @@ def box_terms(fields: Fields, kind: str, ox, oy, oz):
 def box_inv_dirs(fields: Fields, kind: str, dx, dy, dz):
     """Inverse slab directions of one ray set against each box."""
     if kind == "aabb":
-        return safe_inv(dx), safe_inv(dy), safe_inv(dz)
-    return tuple(safe_inv(v) for v in mat_rotate(fields.obb, dx, dy, dz))
+        return inv_dir(dx), inv_dir(dy), inv_dir(dz)
+    return tuple(inv_dir(v) for v in mat_rotate(fields.obb, dx, dy, dz))
 
 
 def ray_cols(x: Tensor, c: slice):
@@ -227,8 +274,8 @@ def ray_cols(x: Tensor, c: slice):
 
 def _sphere_t(sph, ox, oy, oz, dx, dy, dz, a2, a4):
     ocx, ocy, ocz = ox - sph[:, 0], oy - sph[:, 1], oz - sph[:, 2]
-    b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
-    cc = (ocx * ocx + ocy * ocy + ocz * ocz) - sph[:, S_R2]
+    b = 2.0 * (ocx * dx + ocy * dy + ocz * dz).float()
+    cc = (ocx * ocx + ocy * ocy + ocz * ocz).float() - sph[:, S_R2].float()
     disc = b * b - a4 * cc
     hit = disc >= 0.0
     sq = torch.sqrt(torch.where(hit, disc, 1.0))
@@ -239,27 +286,30 @@ def _sphere_t(sph, ox, oy, oz, dx, dy, dz, a2, a4):
 
 
 def closest_hit_plain(fields: Fields, o: Tensor, d: Tensor,
-                      alive: Tensor | None = None):
+                      alive: Tensor | None = None,
+                      compute_dtype=torch.float32):
     """Plain version of B1: (t [R] (+inf miss), rank [R] int32 (INT_MAX
-    on a miss or a dead lane))."""
+    on a miss or a dead lane)), in ``compute_dtype``'s tier."""
     R = o.shape[0]
     t_out = torch.full((R,), INF, device=o.device)
     rank_out = torch.full((R,), INT_MAX, dtype=torch.int32, device=o.device)
     if fields.total == 0:
         return t_out, rank_out
+    geo = fields.rounded(compute_dtype)
+    o, d = o.to(compute_dtype), d.to(compute_dtype)
     for c in ray_chunks(R, fields.total):
         ox, oy, oz = ray_cols(o, c)
         dx, dy, dz = ray_cols(d, c)
-        a = dx * dx + dy * dy + dz * dz
+        a = (dx * dx + dy * dy + dz * dz).float()
         grids = []
         if fields.counts[0]:
-            grids.append(_sphere_t(fields.sph, ox, oy, oz, dx, dy, dz,
+            grids.append(_sphere_t(geo.sph, ox, oy, oz, dx, dy, dz,
                                    2.0 * a, 4.0 * a))
         for kind, tab, miss in (("aabb", fields.aabb, A_MISS),
                                 ("obb", fields.obb, O_MISS)):
             if tab.shape[0]:
-                terms = box_terms(fields, kind, ox, oy, oz)
-                inv = box_inv_dirs(fields, kind, dx, dy, dz)
+                terms = box_terms(geo, kind, ox, oy, oz)
+                inv = box_inv_dirs(geo, kind, dx, dy, dz)
                 grids.append(slab_hit(*slab(*terms, *inv)) + tab[:, miss])
         t, idx = torch.min(torch.cat(grids, dim=-1), dim=-1)
         t_out[c] = t
@@ -322,12 +372,16 @@ def skips_arg(skips):
 
 
 def run_closest_hit(fields: Fields, o: Tensor, d: Tensor,
-                    alive: Tensor | None = None):
+                    alive: Tensor | None = None,
+                    compute_dtype=torch.float32):
     """B1: o, d [R, 3] float32 -> (t [R] float32, +inf on a miss;
     rank [R] int32 in [sphere, aabb, obb] order, INT_MAX on a miss).
-    ``alive`` [R] bool: dead lanes skip the scan and report a miss."""
+    ``alive`` [R] bool: dead lanes skip the scan and report a miss.
+    ``compute_dtype``: torch.float32, or torch.bfloat16 for the bfloat16
+    tier (its launches counted in ``launches_bf16``)."""
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
     if on_cpu(o):
-        return closest_hit_plain(fields, o, d, alive)
+        return closest_hit_plain(fields, o, d, alive, compute_dtype)
     lib = build.load("closest_hit")
     dev = o.device
     check_operands(dev, o, d)
@@ -339,17 +393,18 @@ def run_closest_hit(fields: Fields, o: Tensor, d: Tensor,
     args = []  # the padded tables with the real counts, for the ranks
     for tab, n in zip(closest_tables(fields), fields.counts):
         args += [table_ptr(tab, dev), n]
-    err = lib.closest_hit(o.data_ptr(), d.data_ptr(),
-                          None if alive is None else alive.data_ptr(), R,
-                          *args, t.data_ptr(), rank.data_ptr(),
-                          stream_of(dev))
+    fn = lib.closest_hit_bf16 if bf16 else lib.closest_hit
+    err = fn(o.data_ptr(), d.data_ptr(),
+             None if alive is None else alive.data_ptr(), R, *args,
+             t.data_ptr(), rank.data_ptr(), stream_of(dev))
     build.check("closest_hit", err)
     if R:
-        run_closest_hit.launches += 1
+        count_launch(run_closest_hit, bf16)
     return t, rank
 
 
 run_closest_hit.launches = 0
+run_closest_hit.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,10 @@ groups, with these rules:
   over the group again, which multiplies every gradient by the group's
   size.)
 - ``all_reduce_min`` and ``all_reduce_max`` carry no gradient.
-- Only ``all_reduce`` is used: gloo reduces CUDA tensors (through host
-  copies) with it and ``broadcast``, and with no other collective.
+- ``broadcast`` (no gradient) sends one rank's tensor to its group: the
+  meshed serving loop's per-tick control record and scene snapshots.
+- Only ``all_reduce`` and ``broadcast`` are used: gloo runs them (through
+  host copies) on CUDA tensors, and no other collective.
 - ``group=None`` means "no mesh": every function returns its input, so
   the single-process path runs no collective.
 
@@ -77,3 +79,13 @@ def all_reduce_min(x: Tensor, group=None) -> Tensor:
 def all_reduce_max(x: Tensor, group=None) -> Tensor:
     """The elementwise maximum of ``x`` over ``group`` (no gradient)."""
     return _reduce(x, dist.ReduceOp.MAX, group)
+
+
+def broadcast(x: Tensor, src: int = 0, group=None) -> Tensor:
+    """``x`` of global rank ``src`` on every rank of ``group``, written
+    into ``x`` in place (a contiguous tensor) and returned (no
+    gradient)."""
+    if group is None:
+        return x
+    dist.broadcast(x, src=src, group=group)
+    return x

@@ -322,7 +322,7 @@ def _spawn_entry(rank, world_size, init_method, backend, fn, args, results):
         results.put((rank, False, traceback.format_exc()))
 
 
-def spawn(fn, world_size: int, args=(), timeout: float = 600.0,
+def spawn(fn, world_size: int, args=(), timeout: float | None = 600.0,
           backend: str = "gloo") -> list:
     """Run ``fn(*args)`` on ``world_size`` fresh processes joined in one
     process group (a file store in a temporary directory, so concurrent
@@ -331,8 +331,9 @@ def spawn(fn, world_size: int, args=(), timeout: float = 600.0,
     ``fn`` must be importable by module and name (the ``spawn`` start
     method pickles it by reference); it reads its rank from
     ``torch.distributed.get_rank()``, and its result comes back pickled.
-    Each process uses one CPU thread. A rank that raises, or a run that
-    outlives ``timeout`` seconds, kills every rank and raises here."""
+    Each process uses one CPU thread. A rank that raises or dies, or a
+    run that outlives ``timeout`` seconds (None: no deadline), kills
+    every rank and raises here."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     td = tempfile.mkdtemp(prefix="art_spawn_")
@@ -342,7 +343,8 @@ def spawn(fn, world_size: int, args=(), timeout: float = 600.0,
     try:
         for p in procs:
             p.start()
-        deadline = time.monotonic() + timeout
+        deadline = None if timeout is None else \
+            time.monotonic() + timeout
         got = {}
         while len(got) < world_size:
             try:
@@ -353,7 +355,8 @@ def spawn(fn, world_size: int, args=(), timeout: float = 600.0,
                 if dead:
                     raise RuntimeError(f"rank {dead[0]} exited with code "
                                        f"{procs[dead[0]].exitcode}")
-                if time.monotonic() > deadline:
+                if deadline is not None and \
+                        time.monotonic() > deadline:
                     late = sorted(set(range(world_size)) - set(got))
                     raise RuntimeError(f"ranks {late} timed out after "
                                        f"{timeout:.0f} s")
@@ -383,3 +386,64 @@ def spawn(fn, world_size: int, args=(), timeout: float = 600.0,
         for p in alive:
             p.join(10)
         shutil.rmtree(td, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# A program over a mesh of rank processes
+# ---------------------------------------------------------------------------
+
+
+def parse_mesh(text: str) -> tuple[int, int]:
+    """"RxP" -> (R, P), both positive."""
+    try:
+        rs, ps = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"mesh {text!r}: expected RxP, e.g. 2x2")
+    if rs < 1 or ps < 1:
+        raise ValueError(f"mesh {text!r}: shards must be positive")
+    return rs, ps
+
+
+def _mesh_rank(fn, args, rs, ps, device, backend):
+    """One local rank of ``run_meshed``: the mesh over the spawned group
+    (the rank's own card under NCCL), then ``fn(*args, mesh)``."""
+    dev = resolve_device(device)
+    if backend == "nccl":
+        dev = torch.device("cuda", dist.get_rank())
+        torch.cuda.set_device(dev)
+    return fn(*args, make_mesh(rs, ps, backend=backend, device=dev))
+
+
+def run_meshed(fn, mesh: str, args=(), device="cuda", log=print,
+               timeout: float | None = None):
+    """Run ``fn(*args, mesh)`` on every rank of an R x P ('rays',
+    'prims') mesh (``mesh`` is "RxP") and return rank 0's result.
+
+    Under torchrun or the ART_* variables (``initialize``) this process
+    is one rank of the cluster, and returns its own result. Otherwise
+    R x P local ranks are started (``spawn``; ``fn`` must be importable
+    by module and name): NCCL with one card each where there are cards
+    enough, else gloo with the ranks sharing ``device``. The first
+    ``log`` line says which. ``timeout`` is the local ranks' deadline
+    (None: none; a rank that fails still stops them all)."""
+    rs, ps = parse_mesh(mesh)
+    world = rs * ps
+    if initialize(device=device):
+        try:
+            grid = make_distributed_mesh(ps, device=device)
+            if grid.ray_shards != rs:
+                raise ValueError(f"mesh {mesh} on {dist.get_world_size()} "
+                                 "ranks")
+            if dist.get_rank() == 0:
+                log(f"mesh {rs}x{ps} of {world} ranks from the environment "
+                    f"over {dist.get_backend()}")
+            return fn(*args, grid)
+        finally:
+            dist.destroy_process_group()
+    dev = resolve_device(device)
+    one_each = dev.type == "cuda" and torch.cuda.device_count() >= world
+    backend = "nccl" if one_each else "gloo"
+    log(f"mesh {rs}x{ps}, {world} local ranks over {backend}"
+        + (", one card each" if one_each else f", sharing {dev}"))
+    return spawn(_mesh_rank, world, (fn, args, rs, ps, device, backend),
+                 timeout=timeout, backend=backend)[0]

@@ -34,7 +34,8 @@ from audio_raytracer_tpu_torch.types import (
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This rank's view of the mesh: its ``rays`` and ``prims`` process
-    groups, its (ray_index, prim_index) and its device."""
+    groups, its (ray_index, prim_index) and its device; ``world``, the
+    group of every rank of the mesh (the serving loop's broadcasts)."""
 
     ray_shards: int
     prim_shards: int
@@ -43,6 +44,7 @@ class Mesh:
     rays: object
     prims: object
     device: torch.device
+    world: object
 
 
 def rank_grid(ray_shards: int, prim_shards: int) -> list[list[int]]:
@@ -60,7 +62,8 @@ def make_mesh(ray_shards: int | None = None, prim_shards: int = 1,
     ``ray_shards`` defaults to world size / ``prim_shards``. The groups'
     ``backend`` defaults to "nccl" for a CUDA ``device`` and "gloo" on the
     CPU; ``device`` (this rank's) defaults to "cuda". Every rank creates
-    every group, in the same order, as ``new_group`` requires."""
+    every group (the world's, then the ``rays`` and ``prims`` groups), in
+    the same order, as ``new_group`` requires."""
     world = dist.get_world_size()
     if ray_shards is None:
         ray_shards = world // prim_shards
@@ -71,6 +74,7 @@ def make_mesh(ray_shards: int | None = None, prim_shards: int = 1,
         backend = "nccl" if dev.type == "cuda" else "gloo"
     grid = rank_grid(ray_shards, prim_shards)
     ray_index, prim_index = divmod(dist.get_rank(), prim_shards)
+    everyone = dist.new_group(list(range(world)), backend=backend)
     rays = prims = None
     for j in range(prim_shards):
         g = dist.new_group([row[j] for row in grid], backend=backend)
@@ -81,7 +85,7 @@ def make_mesh(ray_shards: int | None = None, prim_shards: int = 1,
         if i == ray_index:
             prims = g
     return Mesh(ray_shards, prim_shards, ray_index, prim_index, rays, prims,
-                dev)
+                dev, everyone)
 
 
 def _pad_axis(x, n, fill=0.0):

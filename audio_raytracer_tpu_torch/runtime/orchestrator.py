@@ -9,22 +9,80 @@ one forward frame on a CUDA stream the loop owns without waiting for it,
 and returns the most recent *completed* frame's settings. Completion is a
 ``torch.cuda.Event`` recorded after the frame on that stream and polled
 with ``query()``: no host thread waits on the device.
+
+With ``mesh=`` the loop serves through the sharded forward
+(``parallel/sharded.py``), one process per rank (the JAX loop drives
+every device of its mesh from one process). Every rank builds the loop
+and calls ``tick`` in lockstep; rank 0 owns the registry and the
+listener's origin and decides each tick, over the mesh's ``world``
+group (``parallel/comm.py::broadcast``), whether the ranks harvest and
+dispatch, and sends the origin and every changed snapshot.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from audio_raytracer_tpu_torch.models.raytracer import forward, make_backend
 from audio_raytracer_tpu_torch.ops.fibonacci import fibonacci_directions
+from audio_raytracer_tpu_torch.parallel import comm
+from audio_raytracer_tpu_torch.parallel.distributed import local_ray_slice
+from audio_raytracer_tpu_torch.parallel.mesh import (
+    pad_scene_for_prim_shards,
+    shard_scene,
+)
+from audio_raytracer_tpu_torch.parallel.sharded import make_sharded_forward
 from audio_raytracer_tpu_torch.types import (
+    Aabbs,
+    Materials,
+    Obbs,
+    Scene,
+    Spheres,
     TargetSettings,
     TraceConfig,
     resolve_device,
     tensors_of,
 )
+
+# The control record rank 0 broadcasts each tick of a meshed loop:
+# [proceed, origin x, y, z, snapshot follows, spheres, AABBs, OBBs,
+# targets] (the counts those of the padded snapshot).
+_RECORD = 9
+
+
+def _zeros_scene(ns: int, na: int, no: int, targets: int, dev) -> Scene:
+    """A scene of the given counts, every tensor zero: what a follower
+    rank receives a snapshot into."""
+    def f(*shape):
+        return torch.zeros(shape, device=dev)
+
+    def prims(n):
+        return dict(center=f(n, 3), material=Materials(f(n), f(n), f(n)),
+                    target_id=torch.zeros(n, dtype=torch.int32, device=dev),
+                    active=torch.zeros(n, dtype=torch.bool, device=dev))
+
+    return Scene(Spheres(radius=f(ns), **prims(ns)),
+                 Aabbs(half_extents=f(na, 3), **prims(na)),
+                 Obbs(half_extents=f(no, 3), inv_rot=f(no, 4), **prims(no)),
+                 f(targets, 3))
+
+
+def _broadcast_scene(scene: Scene, group) -> None:
+    """Every tensor of ``scene`` from rank 0 into the same tensors of the
+    other ranks, in one float64 broadcast (exact for the float32 fields,
+    the int32 ids and the masks)."""
+    parts = list(tensors_of(scene))
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in parts])
+    comm.broadcast(flat, src=0, group=group)
+    start = 0
+    for t in parts:
+        n = t.numel()
+        t.copy_(flat[start:start + n].reshape(t.shape))
+        start += n
 
 
 class AsyncRaytraceLoop:
@@ -52,19 +110,45 @@ class AsyncRaytraceLoop:
     the backend protocol, used as it is for every frame.
 
     ``device="cpu"`` runs every frame synchronously inside ``tick`` (a
-    frame is always done when probed). The meshed mode of the JAX loop
-    is not ported yet (ROADMAP item 10b): with one process per rank, a
-    serving loop has to broadcast each tick's origin and snapshot to
-    every rank. The sharded forward it would serve is
-    ``parallel/sharded.py``.
+    frame is always done when probed). The kernel engine runs in
+    ``cfg.compute_dtype``'s tier.
+
+    ``mesh`` (``parallel/mesh.py::Mesh``, this rank's): serve through
+    ``make_sharded_forward(cfg with num_accum_batches = ray shards, mesh,
+    return_ir=True)`` on ``mesh.device`` (``device`` is then ignored), the
+    JAX loop's meshed mode (runtime/orchestrator.py:68-176). Each ray
+    shard is one accumulation batch, so ``cfg.ray_count`` must divide by
+    the ray shards. Every rank of the mesh builds the loop and calls
+    ``tick`` (and ``reconfigure``) at the same points. Rank 0 passes the
+    registry and the origin; the other ranks pass ``registry=None`` and
+    ``tick()`` without one. Each tick rank 0 broadcasts a control record
+    over ``mesh.world``: whether to proceed (its own in-flight frame is
+    done, by its ``Event.query()`` alone, or there is none: a rank that
+    dispatched while another skipped would pair the step's all-reduces
+    wrongly), the origin, whether a changed snapshot follows and the
+    padded snapshot's counts, and then that snapshot's tensors. A
+    follower told to proceed waits for its own frame. Snapshots are padded per prim
+    shard (``pad_scene_for_prim_shards``) and each rank traces its
+    ``shard_scene``; registry growth changes the counts, which the
+    record carries. ``control_ms`` is the host time of the latest
+    tick's control broadcast, ``batch_cycle_ms`` the snapshot's (rank
+    0's publish, padding and send; a follower's receive). Every rank
+    returns the same settings.
     """
 
     def __init__(self, registry, cfg: TraceConfig, backend="kernel",
-                 compute_async: bool = True, device="cuda"):
+                 compute_async: bool = True, device="cuda", mesh=None):
+        self.mesh = mesh
+        self._leader = mesh is None or dist.get_rank() == 0
+        if (registry is not None) != self._leader:
+            raise ValueError("rank 0 (or the loop without a mesh) owns the "
+                             "registry; the other ranks of a mesh pass "
+                             "registry=None")
         self.registry = registry
         self.compute_async = compute_async
         self._backend = backend
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         self._cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._scene = None
@@ -74,17 +158,38 @@ class AsyncRaytraceLoop:
         self._events = None
         self._latest = None
         self.reverb_ir = None
+        # The meshed loop's snapshots: rank 0's latest from the registry,
+        # the padded scene every rank holds, and this rank's shard.
+        self._published = None
+        self._padded = None
+        self._local = None
 
         self.raytracer_ms = 0.0
         self.batch_cycle_ms = 0.0
+        self.control_ms = 0.0
         self.frames_dispatched = 0
         self.frames_harvested = 0
 
     def _adopt_config(self, cfg: TraceConfig):
-        """(Re)build the ray buffers for ``cfg``."""
+        """(Re)build the ray buffers (and, on a mesh, the sharded step)
+        for ``cfg``."""
+        directions = fibonacci_directions(cfg.ray_count, device=self.device)
+        self._engine = None
+        if self.mesh is None:
+            self.cfg, self._directions = cfg, directions
+            return
+        shards = self.mesh.ray_shards
+        if cfg.ray_count % shards:
+            raise ValueError(f"ray_count {cfg.ray_count} does not split "
+                             f"over {shards} ray shards")
+        # Each ray shard is one accumulation batch, exactly the
+        # reference's per-thread-batch accumulator rows.
+        self._step = make_sharded_forward(
+            dataclasses.replace(cfg, num_accum_batches=shards), self.mesh,
+            backend=self._backend, return_ir=True)
         self.cfg = cfg
-        self._directions = fibonacci_directions(cfg.ray_count,
-                                                device=self.device)
+        self._directions = directions[local_ray_slice(cfg.ray_count,
+                                                      self.mesh)]
 
     def reconfigure(self, cfg: TraceConfig):
         """Adopt a changed TraceConfig mid-run — the reference's editor
@@ -117,6 +222,8 @@ class AsyncRaytraceLoop:
             if self._in_flight[1] is not None:
                 self._in_flight[1].record_stream(consumer)
         self._latest, self.reverb_ir = self._in_flight
+        if self.reverb_ir is not None and self.reverb_ir.numel() == 0:
+            self.reverb_ir = None  # the sharded step's disabled-IR shape
         self._in_flight = None
         self._events = None
         self.frames_harvested += 1
@@ -150,8 +257,11 @@ class AsyncRaytraceLoop:
 
     @torch.no_grad()
     def _frame(self, origin, scene):
+        if self.mesh is not None:
+            return self._step(origin, self._directions, scene)
         if self._engine is None:
-            self._engine = make_backend(scene, self._backend)
+            self._engine = make_backend(scene, self._backend,
+                                        self.cfg.compute_torch_dtype)
         result, settings = forward(origin, self._directions, scene,
                                    self.cfg, backend=self._engine,
                                    device=self.device)
@@ -159,8 +269,12 @@ class AsyncRaytraceLoop:
         # stage (models/spatializer.spatialize(reverb_ir=...)).
         return settings, result.reverb_ir
 
-    def tick(self, origin) -> TargetSettings | None:
-        """One frame: harvest if complete, re-sync scene, dispatch next."""
+    def tick(self, origin=None) -> TargetSettings | None:
+        """One frame: harvest if complete, re-sync scene, dispatch next.
+        ``origin``: the listener's position (rank 0's; None on the other
+        ranks of a mesh)."""
+        if self.mesh is not None:
+            return self._tick_meshed(origin)
         # 1. Harvest (the mainJobHandle.Complete() analog).
         if self._in_flight is not None:
             if self.compute_async and not self._done():
@@ -179,5 +293,67 @@ class AsyncRaytraceLoop:
         if scene.num_targets > 0:
             o = torch.as_tensor(origin, dtype=torch.float32).to(self.device)
             self._dispatch(o, scene)
+            self.frames_dispatched += 1
+        return self._latest
+
+    def _control(self, proceed: bool, origin, changed: bool) -> list:
+        """The tick's control record, rank 0's values on every rank."""
+        if self._leader:
+            counts = [0.0] * 4
+            if proceed:
+                sc = self._padded
+                counts = [float(sc.spheres.count), float(sc.aabbs.count),
+                          float(sc.obbs.count), float(sc.num_targets)]
+            vals = [float(proceed), *origin, float(changed), *counts]
+            rec = torch.tensor(vals, dtype=torch.float64, device=self.device)
+        else:
+            rec = torch.empty(_RECORD, dtype=torch.float64,
+                              device=self.device)
+        t0 = time.perf_counter()
+        vals = comm.broadcast(rec, src=0, group=self.mesh.world).tolist()
+        self.control_ms = (time.perf_counter() - t0) * 1e3
+        return vals
+
+    def _tick_meshed(self, origin) -> TargetSettings | None:
+        if self._leader and origin is None:
+            raise ValueError("rank 0's tick needs the listener's origin")
+        if not self._leader and origin is not None:
+            raise ValueError("only rank 0 passes the origin")
+        # 1. Rank 0's probe decides for every rank.
+        proceed = not (self._leader and self._in_flight is not None
+                       and self.compute_async and not self._done())
+        # 2. Rank 0 publishes the registry (UpdateJobBatch, cs:154-155).
+        t0 = time.perf_counter()
+        changed = False
+        o = [0.0] * 3
+        if self._leader and proceed:
+            snap = self.registry.snapshot(device=self.device)
+            changed = snap is not self._published
+            if changed:
+                self._published = snap
+                self._padded = pad_scene_for_prim_shards(
+                    snap, self.mesh.prim_shards)
+            o = torch.as_tensor(origin, dtype=torch.float32).tolist()
+        t_snap = time.perf_counter() - t0
+        rec = self._control(proceed, o, changed)
+        if not rec[0]:
+            # Frame-skip on every rank (AudioRayTracer.cs:95).
+            return self._latest
+        t0 = time.perf_counter()
+        if rec[4]:
+            if not self._leader:
+                self._padded = _zeros_scene(*(int(x) for x in rec[5:9]),
+                                            self.device)
+            _broadcast_scene(self._padded, self.mesh.world)
+            self._local = shard_scene(self._padded, self.mesh)
+        self.batch_cycle_ms = (t_snap + time.perf_counter() - t0) * 1e3
+        # 3. Harvest: a follower waits for its own frame.
+        if self._in_flight is not None:
+            self._harvest()
+        # 4. Dispatch on every rank.
+        if int(rec[8]) > 0:
+            o_t = torch.tensor(rec[1:4], dtype=torch.float32,
+                               device=self.device)
+            self._dispatch(o_t, self._local)
             self.frames_dispatched += 1
         return self._latest

@@ -403,17 +403,19 @@ TYPES = ("sphere", "aabb", "obb")
 
 # The kernels part 5 reads: (library, SASS name pattern of the instance).
 LOOP_KERNELS = {
-    "B1": ("closest_hit", r"closest_hit_kernel"),
-    "B2": ("multi_any_hit", r"multi_any_hit_kernelILi5E"),
+    "B1": ("closest_hit", r"closest_hit_kernelI3F32E"),
+    "B2": ("multi_any_hit", r"multi_any_hit_kernelILi5E3F32E"),
     "B4": ("multi_chord_dens_bwd", r"multi_chord_dens_bwd_kernelILi4E"),
     "B6": ("any_hit", r"^_Z\d+any_hit_kernel"),
+    "B1-bf16": ("closest_hit", r"closest_hit_kernelI4BF16E"),
+    "B2-bf16": ("multi_any_hit", r"multi_any_hit_kernelILi5E4BF16E"),
 }
 
 
 def loop_histograms(kernels=tuple(LOOP_KERNELS), log=print) -> dict:
     """{kernel: [opcode classes of each innermost loop]} of B1
     (``closest_hit_kernel``), B2 at S = 5, B4 at S = 4 and B6 in the built
-    libraries: static counts, so a loop holds its rare paths (a
+    libraries, and of B1 and B2 (S = 5) in the bfloat16 tier: static counts, so a loop holds its rare paths (a
     slow-path reciprocal, the sphere hit) beside its common one, and each
     unrolled iteration."""
     out = {}

@@ -257,6 +257,9 @@ class Scene:
 # ---------------------------------------------------------------------------
 
 
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 @dataclasses.dataclass(frozen=True)
 class TraceConfig:
     """Static trace configuration; the same fields and defaults as the
@@ -275,8 +278,12 @@ class TraceConfig:
     reduction downstream ignores. Ignored where ``collect_debug`` needs
     ordered rows.
 
-    Not yet ported: the bfloat16 compute tier
-    (``compute_dtype="bfloat16"``) raises NotImplementedError.
+    ``compute_dtype``: "float32", or "bfloat16" for the kernels' bfloat16
+    tier (B1-B3 with their geometry arithmetic in bfloat16 and float32
+    islands; ops/cuda/kernels.py). Only the kernel engine honours it; the
+    dense tier and the differentiable and sharded paths stay float32, as
+    in the JAX package. The tier needs ``epsilon >= world_scale * 2**-8``
+    so that the hit-point offset survives the rounding of the origins.
     """
 
     ray_count: int = 500
@@ -300,10 +307,15 @@ class TraceConfig:
     compact_unordered: bool = False
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r}: only float32 is "
-                "ported to the PyTorch package")
+        if self.compute_dtype not in _COMPUTE_DTYPES:
+            raise ValueError(
+                f"compute_dtype={self.compute_dtype!r}: expected "
+                "'float32' or 'bfloat16'")
+
+    @property
+    def compute_torch_dtype(self) -> torch.dtype:
+        """compute_dtype resolved to a torch dtype for the kernel tier."""
+        return _COMPUTE_DTYPES[self.compute_dtype]
 
     @property
     def max_hits_per_ray(self) -> int:

@@ -321,9 +321,16 @@ class TestSceneValidation:
                                  for f in dataclasses.fields(TraceConfig)}
 
     def test_bfloat16_document_is_refused_not_traced_in_float32(self):
+        # The bfloat16 tier is ported: a bfloat16 document keeps its tier
+        # (never silently float32); a compute type neither package has is
+        # refused by TraceConfig.
         doc = base_doc()
         doc["trace"]["compute_dtype"] = "bfloat16"
-        with pytest.raises(NotImplementedError, match="bfloat16"):
+        loaded = build_registry(doc)
+        assert loaded.cfg.compute_torch_dtype == torch.bfloat16
+        loaded.registry.close()
+        doc["trace"]["compute_dtype"] = "float16"
+        with pytest.raises(ValueError, match="bfloat16"):
             build_registry(doc)
 
 

@@ -219,12 +219,13 @@ class TestTypesAndConvert:
             assert getattr(ttypes.TraceConfig(), f.name) == \
                 getattr(jtypes.TraceConfig(), f.name), f.name
 
-    # Compaction is ported; the bfloat16 tier is not, with or without it.
-    @pytest.mark.parametrize("kw", [dict(compute_dtype="bfloat16"),
-                                    dict(compute_dtype="bfloat16",
+    # Compaction and the bfloat16 tier are ported; a compute type neither
+    # package has raises, with or without compaction.
+    @pytest.mark.parametrize("kw", [dict(compute_dtype="float16"),
+                                    dict(compute_dtype="float16",
                                          compact_rays=True)])
     def test_later_slices_raise(self, kw):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
             ttypes.TraceConfig(**kw)
 
     @pytest.mark.parametrize("make", [

@@ -8,8 +8,8 @@ tests apply one mutation script to the JAX registry and the port's and
 hold the snapshots equal field by field, exactly; and the harvested
 settings and impulse response of the port's loop to the JAX loop's
 (``backend="jnp"``, ``compute_async=False``) within the tolerances of
-tests/test_torch_forward.py. The meshed loop waits for the distribution
-slice of the port.
+tests/test_torch_forward.py. The meshed loop is tested in
+tests/test_torch_runtime_mesh.py.
 """
 
 import dataclasses
