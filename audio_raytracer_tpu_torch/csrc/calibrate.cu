@@ -104,3 +104,120 @@ extern "C" int calibrate(const float* x, int n, const float* fields,
   LAUNCH(FMA4, 88) LAUNCH(FMA4, 176) LAUNCH(OCCL, 88) LAUNCH(OCCL, 176)
   RETURN_LAST_ERROR;
 }
+
+// ---------------------------------------------------------------------------
+// The packed bfloat16 rates
+// ---------------------------------------------------------------------------
+//
+// Beside the float32 ceiling, the rates of Hopper's packed bfloat16
+// instructions, which the bound of B1-bf16 and B2-bf16 divides their
+// bfloat16 operations by (chip_smoke.py phase 2b). Each lane holds one
+// bf16x2 word (two values, as a pair of rays does) and runs OPS packed
+// instructions per "primitive", whose six fields are bf16x2 words read
+// from shared memory as broadcasts:
+//   ADDMUL: four chains v = v * s + c, a mul.rn.bf16x2 and an
+//           add.rn.bf16x2 a step (never fused), OPS / 8 rounds;
+//   MINMAX: four chains v1 = min(v1, s), v2 = max(v2, s), v3 = min(v3, t),
+//           v4 = max(v4, t), OPS / 4 rounds;
+//   ADD, MUL: eight independent chains v = v + s (add.rn.bf16x2 alone) or
+//           v = v * s (mul.rn.bf16x2 alone), OPS / 8 rounds: the rate of
+//           each instruction without the other, beside ADDMUL's mix;
+// then writes v1 + v2 + v3 + v4 (ADD and MUL: + v5 + v6 + v7 + v8). The
+// marginal rate between OPS = 88 and 176 cancels the loop's overhead, as
+// for the float32 ceiling.
+
+#define ADDMUL 0
+#define MINMAX 1
+#define ADD 2
+#define MUL 3
+
+template <int MIX, int OPS>
+__global__ void __launch_bounds__(BLOCK)
+calibrate_bf16x2_kernel(const unsigned* __restrict__ x, int n,
+                        const float* __restrict__ fields, int prims,
+                        unsigned* __restrict__ out) {
+  using C = BF16X2;
+  constexpr bool EIGHT = MIX == ADD || MIX == MUL;
+  __shared__ __align__(16) float tile[TILE * CAL_W];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bf16x2_t v0{i < n ? x[i] : 0u};
+  bf16x2_t v1 = v0, v2 = C::mul(v0, C::pack(1.1f, 1.1f)),
+           v3 = C::mul(v0, C::pack(0.9f, 0.9f)),
+           v4 = C::mul(v0, C::pack(1.2f, 1.2f));
+  bf16x2_t v5 = C::mul(v0, C::pack(1.3f, 1.3f)),
+           v6 = C::mul(v0, C::pack(0.8f, 0.8f)),
+           v7 = C::mul(v0, C::pack(1.05f, 1.05f)),
+           v8 = C::mul(v0, C::pack(0.95f, 0.95f));
+  const bf16x2_t c1 = C::pack(1e-3f, 1e-3f), c2 = C::pack(2e-3f, 2e-3f),
+                 c3 = C::pack(3e-3f, 3e-3f), c4 = C::pack(4e-3f, 4e-3f);
+  for (int base = 0; base < prims; base += TILE) {
+    const int m = min(TILE, prims - base);
+    __syncthreads();
+    load_tile(tile, fields, base, m, CAL_W);
+    __syncthreads();
+#pragma unroll 1
+    for (int j = 0; j < m; ++j) {
+      const float* p = tile + j * CAL_W;
+      const bf16x2_t f[6] = {C::ld(p[0]), C::ld(p[1]), C::ld(p[2]),
+                             C::ld(p[3]), C::ld(p[4]), C::ld(p[5])};
+      if (MIX == ADDMUL) {
+#pragma unroll
+        for (int q = 0; q < OPS / 8; ++q) {
+          const bf16x2_t s = f[q % 6];
+          v1 = C::add(C::mul(v1, s), c1);
+          v2 = C::add(C::mul(v2, s), c2);
+          v3 = C::add(C::mul(v3, s), c3);
+          v4 = C::add(C::mul(v4, s), c4);
+        }
+      } else if (MIX == MINMAX) {
+#pragma unroll
+        for (int q = 0; q < OPS / 4; ++q) {
+          const bf16x2_t s = f[q % 3], t = f[3 + q % 3];
+          v1 = C::min(v1, s);
+          v2 = C::max(v2, s);
+          v3 = C::min(v3, t);
+          v4 = C::max(v4, t);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < OPS / 8; ++q) {
+          const bf16x2_t s = f[q % 6];
+          if (MIX == ADD) {
+            v1 = C::add(v1, s); v2 = C::add(v2, s); v3 = C::add(v3, s);
+            v4 = C::add(v4, s); v5 = C::add(v5, s); v6 = C::add(v6, s);
+            v7 = C::add(v7, s); v8 = C::add(v8, s);
+          } else {
+            v1 = C::mul(v1, s); v2 = C::mul(v2, s); v3 = C::mul(v3, s);
+            v4 = C::mul(v4, s); v5 = C::mul(v5, s); v6 = C::mul(v6, s);
+            v7 = C::mul(v7, s); v8 = C::mul(v8, s);
+          }
+        }
+      }
+    }
+  }
+  bf16x2_t sum = C::add(C::add(C::add(v1, v2), v3), v4);
+  if (EIGHT) sum = C::add(C::add(C::add(C::add(sum, v5), v6), v7), v8);
+  if (i < n) out[i] = sum.x;
+}
+
+#define LAUNCH_BF16X2(M, N)                                              \
+  if (mix == M && ops == N)                                              \
+    calibrate_bf16x2_kernel<M, N><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0,   \
+                                    (cudaStream_t)stream>>>(             \
+        x, n, fields, prims, out);
+
+// x, out: [n] bf16x2 words; fields: [prims, 8] (columns 0-5 bf16x2
+// words); mix: ADDMUL, MINMAX, ADD or MUL; ops: 88 or 176 packed
+// instructions.
+extern "C" int calibrate_bf16x2(const unsigned* x, int n,
+                                const float* fields, int prims, int mix,
+                                int ops, unsigned* out, void* stream) {
+  if (mix < ADDMUL || mix > MUL || (ops != 88 && ops != 176))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) RETURN_LAST_ERROR;
+  LAUNCH_BF16X2(ADDMUL, 88) LAUNCH_BF16X2(ADDMUL, 176)
+  LAUNCH_BF16X2(MINMAX, 88) LAUNCH_BF16X2(MINMAX, 176)
+  LAUNCH_BF16X2(ADD, 88) LAUNCH_BF16X2(ADD, 176)
+  LAUNCH_BF16X2(MUL, 88) LAUNCH_BF16X2(MUL, 176)
+  RETURN_LAST_ERROR;
+}

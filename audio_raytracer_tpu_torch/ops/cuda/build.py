@@ -144,17 +144,19 @@ _MULTI_ANY_HIT = [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P, _I,
                   _I, _P, _P]
 _MULTI_CHORD = [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P]
 # The C entry points of each library and their argument types (B1-B3's
-# bfloat16 tier takes the float32 entry point's arguments).
+# bfloat16 tier takes the float32 entry point's arguments, B1's and B2's
+# with the card's SM count before the stream; their occupancy reports
+# both tiers).
 _SIGNATURES = {
     "closest_hit": {
         "closest_hit": _CLOSEST_HIT,
-        "closest_hit_bf16": _CLOSEST_HIT,
-        "closest_hit_occupancy": [_P],
+        "closest_hit_bf16": _CLOSEST_HIT[:-1] + [_I, _P],
+        "closest_hit_occupancy": [_P, _P],
         "rcp_mismatches": [_P, _P]},
     "multi_any_hit": {
         "multi_any_hit": _MULTI_ANY_HIT,
-        "multi_any_hit_bf16": _MULTI_ANY_HIT,
-        "multi_any_hit_occupancy": [_I, _P]},
+        "multi_any_hit_bf16": _MULTI_ANY_HIT[:-1] + [_I, _P],
+        "multi_any_hit_occupancy": [_I, _P, _P]},
     "multi_chord": {
         "multi_chord": _MULTI_CHORD,
         "multi_chord_bf16": _MULTI_CHORD},
@@ -171,7 +173,8 @@ _SIGNATURES = {
     "any_hit": {
         "any_hit": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P],
         "any_hit_occupancy": [_P]},
-    "calibrate": {"calibrate": [_P, _I, _P, _I, _I, _I, _P, _P]},
+    "calibrate": {"calibrate": [_P, _I, _P, _I, _I, _I, _P, _P],
+                  "calibrate_bf16x2": [_P, _I, _P, _I, _I, _I, _P, _P]},
 }
 
 

@@ -48,6 +48,7 @@ from audio_raytracer_tpu_torch.ops.cuda.kernels import (
     skips_arg,
     slab,
     slab_hit,
+    sm_count,
     stream_of,
     table_args,
     table_ptr,
@@ -139,11 +140,13 @@ def multi_any_hit_plain(fields: Fields, o: Tensor, dirs, limits: Tensor,
     return out
 
 
-def occlusion_args(fields: Fields, skips, device) -> list:
+def occlusion_args(fields: Fields, skips, device,
+                   compute_dtype=torch.float32) -> list:
     """The tables' arguments of one B2 launch: per type (pointer, free
     rows, owned rows), each table checked by ``table_ptr``."""
     args = []
-    for tab, n_free, n_owned in occlusion_tables(fields, skips):
+    for tab, n_free, n_owned in occlusion_tables(fields, skips,
+                                                 compute_dtype):
         args += [table_ptr(tab, device), n_free, n_owned]
     return args
 
@@ -177,10 +180,12 @@ def run_multi_any_hit(fields: Fields, o: Tensor, dirs, limits: Tensor,
         occ = torch.empty((R, g.stop - g.start), dtype=torch.bool,
                           device=dev)
         keep, skips_ptr = skips_arg(skips[g])
+        # The pair kernel's block shrinks at few rays (pair_threads).
+        sms = [sm_count(dev)] if bf16 else []
         err = fn(o.data_ptr(), stacked.data_ptr(), lim.data_ptr(),
                  init.data_ptr(), R, g.stop - g.start, skips_ptr,
-                 *occlusion_args(fields, skips[g], dev), occ.data_ptr(),
-                 stream_of(dev))
+                 *occlusion_args(fields, skips[g], dev, compute_dtype),
+                 occ.data_ptr(), *sms, stream_of(dev))
         build.check("multi_any_hit", err)
         if R:
             count_launch(run_multi_any_hit, bf16)
@@ -306,11 +311,6 @@ def chord_chunks(rows: int, K: int) -> list[tuple[int, int]]:
     """The scan-order rows [lo, hi) of each block rank of a B3 cluster of
     K blocks (csrc/multi_chord.cu::multi_chord_split_kernel)."""
     return [(k * rows // K, (k + 1) * rows // K) for k in range(K)]
-
-
-def sm_count(device) -> int:
-    """The streaming multiprocessors of the card ``device`` lies on."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch_multi_chord(lib, fields: Fields, o: Tensor, stacked: Tensor,

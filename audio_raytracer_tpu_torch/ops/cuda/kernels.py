@@ -25,7 +25,9 @@ the tables' geometry are rounded to bfloat16, the geometry arithmetic runs
 on bfloat16 tensors (each op rounds once, as the kernels' instructions
 do), and the f32 islands of the JAX tier (``.float()`` below) hold the
 quadratic, the reciprocals, the compares and the sums. In float32 every
-rounding and widening below is the identity.
+rounding and widening below is the identity. B1's and B2's bfloat16
+kernels take two rays a thread in packed ``bf16x2`` words and read tables
+rounded once (``bf16x2_table``).
 """
 
 from __future__ import annotations
@@ -150,9 +152,13 @@ def pad_to_tiles(tab: Tensor) -> Tensor:
     return torch.cat([tab, miss_row(width, tab.device).expand(pad, width)])
 
 
-def closest_tables(fields: Fields):
-    """B1's tables: each type's table padded to whole tiles. The ranks the
-    kernel reports are the scan indices of ``fields``."""
+def closest_tables(fields: Fields, compute_dtype=torch.float32):
+    """B1's tables: each type's table padded to whole tiles; in bfloat16
+    rounded by ``bf16x2_table``. The ranks the kernel reports are the scan
+    indices of ``fields``."""
+    if compute_dtype == torch.bfloat16:
+        return fields.cached(("closest", compute_dtype), lambda: tuple(
+            bf16x2_table(t) for t in closest_tables(fields)))
     return fields.cached("closest", lambda: tuple(
         pad_to_tiles(t) for t in (fields.sph, fields.aabb, fields.obb)))
 
@@ -166,15 +172,20 @@ def active_rows(tab: Tensor) -> Tensor:
     return tab[:, A_MISS if tab.shape[1] == AABB_W else O_MISS] == 0.0
 
 
-def occlusion_tables(fields: Fields, skips):
+def occlusion_tables(fields: Fields, skips, compute_dtype=torch.float32):
     """The occlusion kernels' tables for a launch with these skip targets
     (B2's, and B6's with one): per type (spheres, AABBs, OBBs) a table
     whose active rows owned by none of ``skips`` come first, padded to
     whole tiles, then its active rows owned by one of them, padded
     likewise; inactive rows are left out. Returns ((table, free rows,
-    owned rows), ...). Occlusion is an OR over the primitives, so neither
-    the order nor the ranks matter."""
+    owned rows), ...); in bfloat16 each table rounded by ``bf16x2_table``.
+    Occlusion is an OR over the primitives, so neither the order nor the
+    ranks matter."""
     key = tuple(sorted(set(skips)))
+    if compute_dtype == torch.bfloat16:
+        return fields.cached(("occlusion", key, compute_dtype), lambda: tuple(
+            (bf16x2_table(tab), n_free, n_owned)
+            for tab, n_free, n_owned in occlusion_tables(fields, key)))
 
     def make():
         out = []
@@ -190,6 +201,37 @@ def occlusion_tables(fields: Fields, skips):
         return tuple(out)
 
     return fields.cached(("occlusion", key), make)
+
+
+# The geometry columns of each table width: the ones the bfloat16 tier
+# computes with (sphere centre; AABB bounds; OBB centre, half extents and
+# matrix), before the sphere's r2 and the miss, target and density columns.
+GEOMETRY_COLUMNS = {SPH_W: S_R2, AABB_W: A_MISS, OBB_W: O_MISS}
+
+
+def bf16x2_words(x: Tensor) -> Tensor:
+    """int32 words holding x's bfloat16 rounding in both 16-bit halves:
+    the packed operands (``bf16x2``) of B1-bf16 and B2-bf16."""
+    h = x.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+    w = h * 0x10001
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+
+
+def bf16x2_table(tab: Tensor) -> Tensor:
+    """A padded type table for B1-bf16 and B2-bf16 (``csrc/fields.cuh``
+    BF16X2): its geometry columns rounded to bfloat16 once, each a
+    ``bf16x2_words`` word; a sphere's r2 the float32 of its bfloat16
+    rounding (the kernels widen it as they read it); the miss, target,
+    density and padding columns keep their float32 bits. The kernels
+    read the words as they are, where the float32 tables were rounded at
+    every load: ``cvt.rn`` rounds alike every time, so the bits are the
+    same."""
+    out = tab.clone()
+    n = GEOMETRY_COLUMNS[tab.shape[1]]
+    out.view(torch.int32)[:, :n] = bf16x2_words(tab[:, :n])
+    if tab.shape[1] == SPH_W:
+        out[:, S_R2] = tab[:, S_R2].to(torch.bfloat16).float()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +406,11 @@ def stream_of(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def sm_count(device) -> int:
+    """The streaming multiprocessors of the card ``device`` lies on."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def skips_arg(skips):
     """(array, pointer) of an int array of skip target ids; keep the array
     alive while the kernel's C entry point reads it."""
@@ -391,12 +438,14 @@ def run_closest_hit(fields: Fields, o: Tensor, d: Tensor,
     t = torch.empty((R,), device=dev)
     rank = torch.empty((R,), dtype=torch.int32, device=dev)
     args = []  # the padded tables with the real counts, for the ranks
-    for tab, n in zip(closest_tables(fields), fields.counts):
+    for tab, n in zip(closest_tables(fields, compute_dtype), fields.counts):
         args += [table_ptr(tab, dev), n]
     fn = lib.closest_hit_bf16 if bf16 else lib.closest_hit
+    # The pair kernel's block shrinks at few rays (pair_threads).
+    sms = [sm_count(dev)] if bf16 else []
     err = fn(o.data_ptr(), d.data_ptr(),
              None if alive is None else alive.data_ptr(), R, *args,
-             t.data_ptr(), rank.data_ptr(), stream_of(dev))
+             t.data_ptr(), rank.data_ptr(), *sms, stream_of(dev))
     build.check("closest_hit", err)
     if R:
         count_launch(run_closest_hit, bf16)

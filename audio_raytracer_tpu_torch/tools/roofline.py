@@ -267,6 +267,38 @@ def ceiling(device="cuda", prims=CAL_PRIMS, reps=9, log=print) -> dict:
                 lanes=lanes, prims=prims)
 
 
+def packed_rates(device="cuda", prims=CAL_PRIMS, reps=9, log=print) -> dict:
+    """The packed bfloat16 rates (bfloat16 operations per second, two per
+    packed instruction) beside the float32 ceiling: per mix of
+    ``ops/cuda/calibrate.py``'s packed chains (``PACKED_MIXES``: "addmul"
+    and "minmax", which the bfloat16 bounds take, and "add" and "mul"
+    alone), the marginal rate between 88 and 176 packed instructions per
+    primitive at ``ceiling()``'s shape, its (ms, ops) points, and the SASS
+    loop-body counts. ``ceiling()`` itself stays the float32 one."""
+    dev = resolve_device(device)
+    blocks = calibration_blocks(dev)
+    lanes = blocks * LANES_PER_BLOCK
+    x = torch.full((lanes * 2,), 0.5, device=dev, dtype=torch.bfloat16)
+    fields = [torch.linspace(0.9, 1.1, prims, device=dev) + 1e-3 * i
+              for i in range(6)]
+    rates, points = {}, {}
+    for mix in C.PACKED_MIXES:
+        pts = {n: (cuda_ms(lambda n=n: C.run_calibrate_bf16x2(
+            mix, n, x, fields), reps), C.counted_packed_ops(
+            mix, n, lanes, prims)) for n in C.OPS_PER_ITER}
+        (ms1, o1), (ms2, o2) = (pts[n] for n in C.OPS_PER_ITER)
+        rates[mix] = (o2 - o1) / ((ms2 - ms1) * 1e-3)
+        points[mix] = pts
+        log(f"  bf16x2 {mix} marginal: {rates[mix] / 1e12:.3f} T bf16 "
+            f"ops/s ({pts})")
+    sass = C.packed_loop_counts(C.library_sass("calibrate"))
+    for key in sorted(sass):
+        log(f"  SASS loop body bf16x2 {key[0]} {key[1]}: {sass[key][0]} "
+            f"packed operations; opcodes {sass[key][1]}")
+    return dict(rates=rates, points=points, sass=sass, lanes=lanes,
+                prims=prims)
+
+
 # ---------------------------------------------------------------------------
 # 2. Participation
 # ---------------------------------------------------------------------------
@@ -403,52 +435,63 @@ TYPES = ("sphere", "aabb", "obb")
 
 # The kernels part 5 reads: (library, SASS name pattern of the instance).
 LOOP_KERNELS = {
-    "B1": ("closest_hit", r"closest_hit_kernelI3F32E"),
-    "B2": ("multi_any_hit", r"multi_any_hit_kernelILi5E3F32E"),
+    "B1": ("closest_hit", r"^_Z\d+closest_hit_kernel"),
+    "B2": ("multi_any_hit", r"multi_any_hit_kernelILi5E"),
     "B4": ("multi_chord_dens_bwd", r"multi_chord_dens_bwd_kernelILi4E"),
     "B6": ("any_hit", r"^_Z\d+any_hit_kernel"),
-    "B1-bf16": ("closest_hit", r"closest_hit_kernelI4BF16E"),
-    "B2-bf16": ("multi_any_hit", r"multi_any_hit_kernelILi5E4BF16E"),
+    "B1-bf16": ("closest_hit", r"closest_hit_pairs_kernel"),
+    "B2-bf16": ("multi_any_hit", r"multi_any_hit_pairs_kernelILi5E"),
 }
 
 
 def loop_histograms(kernels=tuple(LOOP_KERNELS), log=print) -> dict:
     """{kernel: [opcode classes of each innermost loop]} of B1
     (``closest_hit_kernel``), B2 at S = 5, B4 at S = 4 and B6 in the built
-    libraries, and of B1 and B2 (S = 5) in the bfloat16 tier: static counts, so a loop holds its rare paths (a
-    slow-path reciprocal, the sphere hit) beside its common one, and each
-    unrolled iteration."""
+    libraries, and of B1 and B2 (S = 5) in the bfloat16 tier, whose loops
+    also give their packed instructions and those that widen and pack
+    (``calibrate.packed_classes``) as "<kernel> packed": static counts,
+    so a loop holds its rare paths (a slow-path reciprocal, the sphere
+    hit) beside its common one, and each unrolled iteration."""
     out = {}
     for key in kernels:
         name, pattern = LOOP_KERNELS[key]
-        loops = C.loop_bodies(C.library_sass(name), pattern)
-        out[key] = [lp["classes"] for lps in loops.values() for lp in lps]
-        for i, classes in enumerate(out[key]):
-            log(f"  {key} {name} loop {i}: {classes}")
+        loops = [lp for lps in C.loop_bodies(C.library_sass(name),
+                                             pattern).values() for lp in lps]
+        out[key] = [lp["classes"] for lp in loops]
+        if key.endswith("bf16"):
+            out[f"{key} packed"] = [C.packed_classes(lp["ops"])
+                                    for lp in loops]
+        for i, lp in enumerate(loops):
+            log(f"  {key} {name} loop {i}: {lp['classes']}"
+                + (f" {C.packed_classes(lp['ops'])}"
+                   if key.endswith("bf16") else ""))
     return out
 
 
 def occupancy(sets=(5,)) -> dict:
-    """Resident blocks per SM of B1, B6, and of B2 and B4 at each S in
-    ``sets``."""
+    """Resident blocks per SM of B1, B1-bf16, B6, and of B2, B2-bf16 and
+    B4 at each S in ``sets``."""
     import ctypes
 
     from audio_raytracer_tpu_torch.ops.cuda import build
 
-    n = ctypes.c_int(0)
+    n, n_bf16 = ctypes.c_int(0), ctypes.c_int(0)
     out = {}
-    for key, lib, fn in (("B1", "closest_hit", "closest_hit_occupancy"),
-                         ("B6", "any_hit", "any_hit_occupancy")):
-        build.check("occupancy", getattr(build.load(lib), fn)(
-            ctypes.byref(n)))
-        out[key] = n.value
+    build.check("occupancy", build.load("closest_hit").closest_hit_occupancy(
+        ctypes.byref(n), ctypes.byref(n_bf16)))
+    out["B1"], out["B1-bf16"] = n.value, n_bf16.value
+    build.check("occupancy", build.load("any_hit").any_hit_occupancy(
+        ctypes.byref(n)))
+    out["B6"] = n.value
     for S in sets:
-        for key, lib in (("B2", "multi_any_hit"),
-                         ("B4", "multi_chord_dens_bwd")):
-            build.check("occupancy", getattr(build.load(lib),
-                                             f"{lib}_occupancy")(
-                S, ctypes.byref(n)))
-            out[f"{key} S={S}"] = n.value
+        build.check("occupancy", build.load(
+            "multi_any_hit").multi_any_hit_occupancy(
+            S, ctypes.byref(n), ctypes.byref(n_bf16)))
+        out[f"B2 S={S}"], out[f"B2-bf16 S={S}"] = n.value, n_bf16.value
+        build.check("occupancy", build.load(
+            "multi_chord_dens_bwd").multi_chord_dens_bwd_occupancy(
+            S, ctypes.byref(n)))
+        out[f"B4 S={S}"] = n.value
     return out
 
 

@@ -417,3 +417,247 @@ def test_forward_takes_the_tier_only_on_the_kernel_engine(scene, rays):
     kern = [forward(origin, d, scene, c, backend="kernel", device="cpu")[0]
             for c in (cfg, cfg16)]
     assert not torch.equal(kern[0].echo_distances, kern[1].echo_distances)
+
+
+# ---------------------------------------------------------------------------
+# B1-bf16 and B2-bf16 read tables rounded once: each geometry field a
+# bf16x2 word holding its bfloat16 rounding in both halves
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def owned_fields():
+    """Tables of a scene whose targets own colliders and some of whose
+    AABBs are inactive: the occlusion tables have free and owned parts
+    and leave rows out; no type fills whole tiles."""
+    from audio_raytracer_tpu_torch.models.raytracer import random_scene as tr
+
+    sc = tr(3, 37, 150, 29, num_targets=3, extent=20.0,
+            target_owned_colliders=True, device="cpu")
+    act = torch.arange(150) % 3 != 0
+    sc = sc.replace(aabbs=dataclasses.replace(sc.aabbs, active=act))
+    return KernelBackend(sc).fields
+
+
+def word_halves(tab, n):
+    """(low, high) 16-bit halves of the words of tab's first n columns."""
+    w = tab.view(torch.int32)[:, :n].to(torch.int64) & 0xFFFFFFFF
+    return w & 0xFFFF, w >> 16
+
+
+def bf16_bits(x):
+    return x.to(BF16).view(torch.int16).to(torch.int64) & 0xFFFF
+
+
+def bf16_table_pairs(fields):
+    """(float32 table, bf16x2 table, real rows) of B1's three tables and
+    of B2's for skips (NO_SKIP, 0, 2)."""
+    out = list(zip(K.closest_tables(fields),
+                   K.closest_tables(fields, BF16), fields.counts))
+    for (tab, n_free, n_owned), (tab16, *_) in zip(
+            K.occlusion_tables(fields, (NO_SKIP, 0, 2)),
+            K.occlusion_tables(fields, (NO_SKIP, 0, 2), BF16)):
+        out.append((tab, tab16, None))
+    return out
+
+
+def test_bf16x2_words_hold_the_rounded_geometry_in_both_halves(
+        owned_fields):
+    rounded = owned_fields.rounded(BF16)
+    for tab, tab16, n_real in bf16_table_pairs(owned_fields):
+        assert tab16.shape == tab.shape and tab16.dtype == torch.float32
+        n = K.GEOMETRY_COLUMNS[tab.shape[1]]
+        lo, hi = word_halves(tab16, n)
+        assert torch.equal(lo, hi)
+        assert torch.equal(lo, bf16_bits(tab[:, :n]))
+        # What the kernel widens (fields.cuh BF16X2::half) is the float32
+        # of the rounding.
+        w = tab16.view(torch.int32)[:, :n]
+        for half in ((w << 16), (w & -65536)):
+            assert torch.equal(half.view(torch.float32),
+                               tab[:, :n].to(BF16).float())
+        if n_real is not None:  # B1's rows are the fields' rows
+            geo = {K.SPH_W: rounded.sph, K.AABB_W: rounded.aabb,
+                   K.OBB_W: rounded.obb}[tab.shape[1]]
+            assert torch.equal(lo[:n_real], bf16_bits(geo[:, :n]))
+        if tab.shape[1] == K.SPH_W:
+            assert torch.equal(tab16[:, K.S_R2],
+                               tab[:, K.S_R2].to(BF16).float())
+            if n_real is not None:
+                assert torch.equal(tab16[:n_real, K.S_R2],
+                                   rounded.sph[:, K.S_R2].float())
+
+
+def test_bf16x2_tables_keep_the_float32_columns(owned_fields):
+    for tab, tab16, _ in bf16_table_pairs(owned_fields):
+        first = {K.SPH_W: K.S_TGT}.get(tab.shape[1],
+                                       K.GEOMETRY_COLUMNS[tab.shape[1]])
+        # miss, target, density and padding columns: the same bits
+        assert torch.equal(tab16.view(torch.int32)[:, first:],
+                           tab.view(torch.int32)[:, first:])
+
+
+def test_bf16x2_padding_rows_are_still_miss_rows(owned_fields):
+    for tab, tab16, n_real in bf16_table_pairs(owned_fields):
+        assert tab16.shape[0] % K.TILE == 0
+        if n_real is None:
+            # B2's tables: active rows, then padding (never hits)
+            act = K.active_rows(tab)
+            assert torch.equal(K.active_rows(tab16), act)
+            pad = ~act
+        else:
+            pad = torch.arange(tab.shape[0]) >= n_real
+            assert bool(pad.any())
+            assert not bool(K.active_rows(tab16)[pad].any())
+        miss = K.miss_row(tab.shape[1], "cpu")
+        assert torch.equal(K.bf16x2_table(miss[None]).view(torch.int32)[0],
+                           tab16[pad].view(torch.int32)[0])
+        assert torch.equal(K.ids(tab16, {K.SPH_W: K.S_TGT, K.AABB_W: K.A_TGT,
+                                         K.OBB_W: K.O_TGT}[tab.shape[1]])
+                           [pad], torch.full((int(pad.sum()),), -1,
+                                             dtype=torch.int32))
+
+
+def test_bf16x2_tables_are_built_once_per_fields_dtype_and_skips(scene):
+    fields = KernelBackend(scene).fields
+    c16 = K.closest_tables(fields, BF16)
+    assert K.closest_tables(fields, BF16) is c16
+    assert K.closest_tables(fields) is not c16
+    o16 = K.occlusion_tables(fields, (NO_SKIP, 1), BF16)
+    assert K.occlusion_tables(fields, (1, NO_SKIP), BF16) is o16
+    assert K.occlusion_tables(fields, (NO_SKIP, 0), BF16) is not o16
+    assert K.occlusion_tables(fields, (NO_SKIP, 1)) is not o16
+    keys = [k for k in fields.derived if isinstance(k, tuple) and BF16 in k]
+    assert sorted(map(str, keys)) == sorted(map(str, [
+        ("closest", BF16), ("occlusion", (NO_SKIP, 1), BF16),
+        ("occlusion", (NO_SKIP, 0), BF16)]))
+    # Other tables of the same scene build their own.
+    assert K.closest_tables(KernelBackend(scene).fields, BF16) is not c16
+
+
+def test_bf16_wrappers_take_the_plain_versions_on_the_cpu(scene, rays,
+                                                           monkeypatch):
+    from audio_raytracer_tpu_torch.ops.cuda import build
+
+    def no_library(name):
+        raise AssertionError(f"{name}: a CPU tensor built a kernel")
+
+    monkeypatch.setattr(build, "load", no_library)
+    fields = KernelBackend(scene).fields
+    o, d = tt(rays[0][:300]), tt(rays[1][:300])
+    alive = torch.arange(300) % 5 != 2
+    before = (K.run_closest_hit.launches_bf16,
+              F.run_multi_any_hit.launches_bf16)
+    t, rank = K.run_closest_hit(fields, o, d, alive, compute_dtype=BF16)
+    t_p, rank_p = K.closest_hit_plain(fields, o, d, alive, compute_dtype=BF16)
+    assert torch.equal(t, t_p) and torch.equal(rank, rank_p)
+    lim = torch.full((300, 2), 10.0)
+    init = torch.zeros((300, 2), dtype=torch.bool)
+    args = (fields, o, sets(d), lim, (NO_SKIP, 0), init)
+    assert torch.equal(F.run_multi_any_hit(*args, compute_dtype=BF16),
+                       F.multi_any_hit_plain(*args, compute_dtype=BF16))
+    assert (K.run_closest_hit.launches_bf16,
+            F.run_multi_any_hit.launches_bf16) == before
+    assert [k for k in fields.derived
+            if isinstance(k, tuple) and BF16 in k] == [("rounded", BF16)]
+
+
+def bf16_up(x: float) -> int:
+    """csrc/fields.cuh::bf16_up: the smallest bfloat16 at or above x."""
+    u = int(np.float32(x).view(np.uint32))
+    if x != x:
+        return 0x7FC0
+    return (u >> 16) + int((u & 0xFFFF) != 0 and not u >> 31)
+
+
+def test_limit_rounded_up_decides_as_the_float32_compare():
+    """B2-bf16 tests a slab's bfloat16 hit t against its float32 limit
+    as t < bf16_up(limit), a packed bfloat16 compare: for every
+    bfloat16 t the answer is the float32 compare's."""
+    t = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(BF16)
+    rng = np.random.default_rng(0)
+    lims = np.concatenate([
+        rng.standard_normal(300).astype(np.float32) * 100,
+        np.frombuffer(rng.integers(0, 2**32, 300, dtype=np.uint32)
+                      .astype(np.uint32).tobytes(), np.float32),
+        np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 3.3895314e38,
+                  3.4028235e38, -3.4028235e38, 1e-45, -1e-45, 1.0,
+                  1.00390625, 1.0039063], np.float32)])
+    tf = t.float()
+    for lim in lims:
+        up = torch.tensor([bf16_up(float(lim))], dtype=torch.int32) \
+            .to(torch.int16).view(BF16)
+        assert torch.equal(tf < torch.tensor(float(lim)), t < up), lim
+
+
+SASS_PACKED = """
+        Function : _Z23calibrate_bf16x2_kernelILi1ELi88EEvPKjiPKfiPj
+        .L_x_1:
+        /*0000*/                   LDS.128 R4, [UR5] ;
+        /*0010*/                   VHMNMX.BF16_V2 R2, R2, R4.reuse, R5.reuse, PT ;
+        /*0020*/                   VHMNMX.BF16_V2 R9, R9, R4, R5, !PT ;
+        /*0030*/                   HMNMX2.BF16_V2 R10, R10, R7, PT ;
+        /*0040*/               @P1 BRA `(.L_x_1) ;
+        Function : _Z23calibrate_bf16x2_kernelILi0ELi88EEvPKjiPKfiPj
+        .L_x_2:
+        /*0000*/                   LDS.64 R12, [UR5+0x10] ;
+        /*0010*/                   HMUL2.BF16_V2 R2, R2, R4 ;
+        /*0020*/                   HFMA2.BF16_V2 R2, R2, 1, 1, R6 ;
+        /*0030*/                   PRMT R3, R2, 0x7632, R3 ;
+        /*0040*/               @P1 BRA `(.L_x_2) ;
+        Function : _Z16calibrate_kernelILi0ELi88EEvPKfiS1_i9CalConstsPf
+        .L_x_3:
+        /*0000*/                   FMUL R2, R2, R4 ;
+        /*0010*/               @P1 BRA `(.L_x_3) ;
+"""
+
+
+def test_packed_loop_counts_count_a_fused_min_max_twice():
+    """The packed calibration's loop bodies: a VHMNMX (ptxas's fusion of
+    two chained min.bf16x2 or max.bf16x2) is two packed operations; the
+    float32 calibration's loop bodies are not packed ones."""
+    from audio_raytracer_tpu_torch.ops.cuda import calibrate as C
+
+    counts = C.packed_loop_counts(SASS_PACKED)
+    assert sorted(counts) == [("addmul", 88), ("minmax", 88)]
+    assert counts["minmax", 88][0] == 5
+    assert counts["addmul", 88][0] == 2
+    assert counts["addmul", 88][1]["PRMT"] == 1
+    (ops,) = [lp["ops"] for lps in C.loop_bodies(
+        SASS_PACKED, r"ILi0ELi88E", C.PACKED_OPCODES).values() for lp in lps]
+    assert C.packed_classes(ops) == dict(packed=2, VHMNMX=0, PRMT=1, F2F=0,
+                                         F2FP=0)
+    assert list(C.loop_body_counts(SASS_PACKED)) == [("fma4", 88)]
+
+
+def _bf16_round(x: float) -> float:
+    """x (a float64 that float32 holds exactly) rounded to bfloat16."""
+    return float(torch.tensor(x, dtype=torch.float32).to(BF16).float())
+
+
+@pytest.mark.parametrize("mix", ["add", "mul"])
+def test_packed_calibration_chains_alone_round_each_step(mix):
+    """The packed calibration's "add" and "mul" mixes (eight chains of
+    add.rn.bf16x2 or mul.rn.bf16x2 alone) on the CPU: each step rounds
+    the exact sum or product of two bfloat16 values to bfloat16, and the
+    result is the eight chains summed left to right, as the kernel's."""
+    from audio_raytracer_tpu_torch.ops.cuda import calibrate as C
+
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.uniform(0.5, 1.5, 4), dtype=BF16)
+    fields = [torch.tensor(rng.uniform(0.9, 1.1, 3), dtype=torch.float32)
+              for _ in range(6)]
+    got = C.run_calibrate_bf16x2(mix, 88, x, fields)
+    assert torch.equal(got, C.calibrate_bf16x2_plain(mix, 88, x, fields))
+    f = [[_bf16_round(float(t[p])) for t in fields] for p in range(3)]
+    step = (lambda a, b: a + b) if mix == "add" else (lambda a, b: a * b)
+    for lane, v0 in enumerate(x.float().tolist()):
+        v = [v0] + [_bf16_round(v0 * _bf16_round(k))
+                    for k in (1.1, 0.9, 1.2, 1.3, 0.8, 1.05, 0.95)]
+        for p in range(3):
+            for q in range(88 // 8):
+                v = [_bf16_round(step(vk, f[p][q % 6])) for vk in v]
+        want = v[0]
+        for vk in v[1:]:
+            want = _bf16_round(want + vk)
+        assert float(got[lane]) == want, (mix, lane)

@@ -456,7 +456,7 @@ class TestWrappers:
         monkeypatch.setattr(build, "load", lambda name: Lib())
         monkeypatch.setattr(F, "table_args", lambda fields, dev: [0] * 6)
         monkeypatch.setattr(F, "occlusion_args",
-                            lambda fields, skips, dev: [0] * 9)
+                            lambda fields, skips, dev, dtype: [0] * 9)
         monkeypatch.setattr(F, "stream_of", lambda dev: 0)
         monkeypatch.setattr(F, "sm_count", lambda dev: 132)
         fields = K.Fields(*(torch.zeros((n, w), device="meta") for n, w in
