@@ -13,10 +13,15 @@ port's ``torch.optim.Adam``, so a run started in JAX continues here;
 one rank's shard of a mesh, so a shard can be held against the JAX
 package's global arrays. Only attribute names are read, so any object
 with the JAX structure works, and nothing of JAX is imported.
+
+Floating fields keep the arrays' own precision: a float64 scene (the JAX
+package's under ``jax_enable_x64``, as its finite-difference checks run)
+arrives as float64, anything else as float32, the canonical precision.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from audio_raytracer_tpu_torch.models.differentiable import (
@@ -36,13 +41,24 @@ from audio_raytracer_tpu_torch.types import (
 )
 
 
+_MATERIAL_FIELDS = ("absorption", "density", "echo")
+
+
+def _float(x, device):
+    """``x`` as a tensor on ``device``: float64 stays float64 and any
+    other array becomes float32."""
+    wide = x.dtype == torch.float64 if isinstance(x, torch.Tensor) \
+        else np.asarray(x).dtype == np.float64
+    return to_tensor(x, torch.float64 if wide else torch.float32, device)
+
+
 def _materials(m, device) -> Materials:
-    return Materials(*(to_tensor(getattr(m, f), torch.float32, device)
-                       for f in ("absorption", "density", "echo")))
+    return Materials(*(_float(getattr(m, f), device)
+                       for f in _MATERIAL_FIELDS))
 
 
 def _common(p, device) -> dict:
-    return dict(center=to_tensor(p.center, torch.float32, device),
+    return dict(center=_float(p.center, device),
                 material=_materials(p.material, device),
                 target_id=to_tensor(p.target_id, torch.int32, device),
                 active=to_tensor(p.active, torch.bool, device))
@@ -50,25 +66,26 @@ def _common(p, device) -> dict:
 
 def scene_from_arrays(scene, device="cuda") -> Scene:
     """The PyTorch ``Scene`` on ``device`` with the fields of ``scene``
-    (numpy arrays in the JAX ``Scene`` structure)."""
+    (numpy arrays in the JAX ``Scene`` structure), each floating field in
+    its own precision."""
     device = resolve_device(device)
-    f32 = torch.float32
     sp, ab, ob = scene.spheres, scene.aabbs, scene.obbs
     return Scene(
-        spheres=Spheres(radius=to_tensor(sp.radius, f32, device),
+        spheres=Spheres(radius=_float(sp.radius, device),
                         **_common(sp, device)),
-        aabbs=Aabbs(half_extents=to_tensor(ab.half_extents, f32, device),
+        aabbs=Aabbs(half_extents=_float(ab.half_extents, device),
                     **_common(ab, device)),
-        obbs=Obbs(half_extents=to_tensor(ob.half_extents, f32, device),
-                  inv_rot=to_tensor(ob.inv_rot, f32, device),
+        obbs=Obbs(half_extents=_float(ob.half_extents, device),
+                  inv_rot=_float(ob.inv_rot, device),
                   **_common(ob, device)),
-        target_positions=to_tensor(scene.target_positions, f32, device),
+        target_positions=_float(scene.target_positions, device),
     )
 
 
 def params_from_arrays(params, device="cuda") -> SceneParams:
     """The PyTorch ``SceneParams`` on ``device`` from the JAX
-    ``SceneParams`` structure (numpy leaves)."""
+    ``SceneParams`` structure (numpy leaves), each leaf in its own
+    precision."""
     device = resolve_device(device)
     return SceneParams(*(_materials(getattr(params, k), device)
                          for k in ("sphere", "aabb", "obb")))
@@ -76,14 +93,14 @@ def params_from_arrays(params, device="cuda") -> SceneParams:
 
 def loudness_from_arrays(loudness, device="cuda") -> Loudness:
     """The PyTorch ``Loudness`` on ``device`` from the JAX ``Loudness``
-    structure (numpy leaves; ``reverb_ir`` may be None)."""
+    structure (numpy leaves; ``reverb_ir`` may be None), each field in
+    its own precision."""
     device = resolve_device(device)
     ir = loudness.reverb_ir
     return Loudness(
-        *(to_tensor(getattr(loudness, k), torch.float32, device)
+        *(_float(getattr(loudness, k), device)
           for k in ("muffle", "permeation", "reverb_energy")),
-        reverb_ir=None if ir is None else to_tensor(ir, torch.float32,
-                                                    device))
+        reverb_ir=None if ir is None else _float(ir, device))
 
 
 def adam_from_arrays(mu, nu, count, optimizer):

@@ -27,6 +27,13 @@ ops/pallas/backend.py:59-118) gradients flow at O(R + P) memory:
 Every kernel reads detached inputs. Forward values are those of
 ``differentiable=False``.
 
+The kernels compute in float32 whatever the scene's precision, as the
+JAX tier's do: a float64 scene's tables are rounded to float32 once,
+and the origins, directions and limits at every call (the winner's t
+is recomputed from the rounded ray, in the scene's precision, as the
+JAX tier's is); gradients reach the float64 leaves through those
+casts.
+
 ``compute_dtype=torch.bfloat16`` is the bfloat16 tier of JAX
 ``PallasBackend(compute_dtype=jnp.bfloat16)`` (ops/pallas/backend.py:
 94-118): it reaches B1 (``closest_hit``, ``closest_t``,
@@ -57,9 +64,15 @@ def _ids_as_f32(x: Tensor) -> Tensor:
     return x.to(torch.int32).contiguous().view(torch.float32)
 
 
+def _f32(x: Tensor) -> Tensor:
+    """``x`` in float32 (itself when it is float32 already)."""
+    return x.to(torch.float32)
+
+
 def _table(cols, width: int) -> Tensor:
-    """Stack [n] float32 columns into an [n, width] table, zero padded."""
-    tab = torch.stack(cols, dim=1)
+    """Stack [n] columns, each rounded to float32, into an [n, width]
+    float32 table, zero padded."""
+    tab = torch.stack([_f32(c) for c in cols], dim=1)
     return torch.nn.functional.pad(tab, (0, width - tab.shape[1]))
 
 
@@ -144,8 +157,8 @@ class KernelBackend:
         """B1: (t [R] (+inf on a miss), idx [R] int64 in sphere -> AABB ->
         OBB order, a miss clamped to the last row): the local-engine
         protocol of PrimShardedBackend. No gradient."""
-        t, rank = K.run_closest_hit(self.fields, o.detach().contiguous(),
-                                    d.detach().contiguous(), alive,
+        t, rank = K.run_closest_hit(self.fields, _f32(o.detach()).contiguous(),
+                                    _f32(d.detach()).contiguous(), alive,
                                     self.compute_dtype)
         return t, torch.clamp(rank, max=self.total - 1).long()
 
@@ -168,9 +181,10 @@ class KernelBackend:
         attrs = attrs_from_tabs(self._geom_tab, self._mat_tab, idx)
         hit = torch.isfinite(t)
         if self.differentiable:
+            # From the ray the kernel saw, in the scene's precision.
             t_rec = intersect.primitive_t_per_ray(
-                o, d, attrs["kind"], attrs["center"], attrs["half_extents"],
-                attrs["inv_rot"])
+                _f32(o).to(o.dtype), _f32(d).to(d.dtype), attrs["kind"],
+                attrs["center"], attrs["half_extents"], attrs["inv_rot"])
             t = torch.where(hit, t_rec, float("inf"))
         return hit, t, attrs
 
@@ -178,8 +192,8 @@ class KernelBackend:
         """The kernel's closest-hit t [R] (no gradient)."""
         if self.total == 0:
             return torch.full(o.shape[:-1], float("inf"), device=o.device)
-        return K.run_closest_hit(self.fields, o.detach().contiguous(),
-                                 d.detach().contiguous(),
+        return K.run_closest_hit(self.fields, _f32(o.detach()).contiguous(),
+                                 _f32(d.detach()).contiguous(),
                                  compute_dtype=self.compute_dtype)[0]
 
     def _densities(self):
@@ -195,9 +209,9 @@ class KernelBackend:
             return torch.zeros(o.shape[:-1], dtype=torch.bool,
                                device=o.device)
         skip = NO_SKIP if skip_target_id is None else int(skip_target_id)
-        return K.run_any_hit(self.fields, o.detach().contiguous(),
-                             d.detach().contiguous(),
-                             torch.as_tensor(limit).detach(), skip)
+        return K.run_any_hit(self.fields, _f32(o.detach()).contiguous(),
+                             _f32(d.detach()).contiguous(),
+                             _f32(torch.as_tensor(limit).detach()), skip)
 
     def permeation_loss(self, o, d, skip_target_id=None) -> Tensor:
         """Single-set permeation chords (B7): [R] float32, d unit length;
@@ -206,18 +220,20 @@ class KernelBackend:
             return o.new_zeros(o.shape[:-1])
         skip = NO_SKIP if skip_target_id is None else int(skip_target_id)
         if self.differentiable:
-            return chord_loss(self.fields, skip, o, d, self._densities())
-        return K.run_chord_loss(self.fields, o.detach().contiguous(),
-                                d.detach().contiguous(), skip)
+            return chord_loss(self.fields, skip, _f32(o), _f32(d),
+                              self._densities())
+        return K.run_chord_loss(self.fields, _f32(o.detach()).contiguous(),
+                                _f32(d.detach()).contiguous(), skip)
 
     def multi_occluded(self, o, dirs, limits, skips, init_occ) -> Tensor:
         """Fused S-set occlusion (B2): [R, S] bool, init lanes True."""
         if self.total == 0:
             return init_occ
-        return F.run_multi_any_hit(self.fields, o.detach().contiguous(),
-                                   [x.detach() for x in dirs],
-                                   limits.detach().contiguous(), tuple(skips),
-                                   init_occ.contiguous(), self.compute_dtype)
+        return F.run_multi_any_hit(self.fields, _f32(o.detach()).contiguous(),
+                                   [_f32(x.detach()) for x in dirs],
+                                   _f32(limits.detach()).contiguous(),
+                                   tuple(skips), init_occ.contiguous(),
+                                   self.compute_dtype)
 
     def multi_permeation_loss(self, o, dirs, skips) -> Tensor:
         """Fused S-target permeation chords (B3): [R, S] float32; with
@@ -226,8 +242,9 @@ class KernelBackend:
         if self.total == 0:
             return o.new_zeros(o.shape[:-1] + (len(dirs),))
         if self.differentiable:
-            return multi_chord_loss(self.fields, skips, o, self._densities(),
-                                    dirs)
-        return F.run_multi_chord(self.fields, o.detach().contiguous(),
-                                 [x.detach() for x in dirs], tuple(skips),
-                                 self.compute_dtype)
+            return multi_chord_loss(self.fields, skips, _f32(o),
+                                    self._densities(),
+                                    [_f32(x) for x in dirs])
+        return F.run_multi_chord(self.fields, _f32(o.detach()).contiguous(),
+                                 [_f32(x.detach()) for x in dirs],
+                                 tuple(skips), self.compute_dtype)

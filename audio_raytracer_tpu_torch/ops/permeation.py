@@ -44,7 +44,7 @@ def permeation(origin: Tensor, directions: Tensor, scene: Scene,
     B = cfg.num_accum_batches
     dev = directions.device
     if T == 0 or (backend is None and scene.num_primitives == 0):
-        return torch.zeros((B, T), device=dev)
+        return torch.zeros((B, T), dtype=directions.dtype, device=dev)
     if backend is None:
         backend = DenseBackend(scene)
 

@@ -124,17 +124,17 @@ def _secondary_occlusion(backend, scene: Scene, cfg: TraceConfig,
     return dist_echo, echo_visible, muffle_visible
 
 
-def _empty_result(R, T, H, cfg, device, collect_debug):
+def _empty_result(R, T, H, cfg, device, collect_debug, dtype):
     B = cfg.num_accum_batches
     result = TraceResult(
-        echo_distances=torch.zeros((R, H), device=device),
+        echo_distances=torch.zeros((R, H), dtype=dtype, device=device),
         muffle_hits=torch.zeros((B, T), dtype=torch.int32, device=device),
-        permeation=torch.zeros((B, T), device=device),
+        permeation=torch.zeros((B, T), dtype=dtype, device=device),
     )
     if collect_debug:
         result = dataclasses.replace(
             result,
-            hit_points=torch.zeros((R, H, 3), device=device),
+            hit_points=torch.zeros((R, H, 3), dtype=dtype, device=device),
             hit_counts=torch.zeros((R,), dtype=torch.int32, device=device),
         )
     return result
@@ -158,7 +158,8 @@ def trace(origin: Tensor, directions: Tensor, scene: Scene,
 
     if backend is None:
         if scene.num_primitives == 0:
-            return _empty_result(R, T, H, cfg, dev, collect_debug)
+            return _empty_result(R, T, H, cfg, dev, collect_debug,
+                                 directions.dtype)
         backend = DenseBackend(scene)
     # Engines that skip dead lanes get the alive mask, and only for them
     # does the alive-first reorder pay.
@@ -173,7 +174,8 @@ def trace(origin: Tensor, directions: Tensor, scene: Scene,
 
     o = origin.to(directions.dtype).expand(R, 3)
     d = directions
-    life = torch.full((R,), cfg.max_ray_life, device=dev)
+    life = torch.full((R,), cfg.max_ray_life, dtype=directions.dtype,
+                      device=dev)
     alive = torch.ones((R,), dtype=torch.bool, device=dev)
     echoes, hit_mask, hit_points = [], [], []
     muffle_per_ray = torch.zeros((R, T), dtype=torch.int32, device=dev)
@@ -271,7 +273,7 @@ def trace(origin: Tensor, directions: Tensor, scene: Scene,
     result = TraceResult(
         echo_distances=torch.stack(echoes, dim=1),  # [R, H]
         muffle_hits=muffle_hits,
-        permeation=torch.zeros((B, T), device=dev),
+        permeation=torch.zeros((B, T), dtype=directions.dtype, device=dev),
         # Primary-ray first hit, reused by ops.permeation so it need not
         # scan the scene again.
         first_hit_t=first_hit_t,
