@@ -53,6 +53,8 @@ namespace cg = cooperative_groups;
 
 // Most blocks in one cluster (non-portable; 8 is portable).
 #define MAX_CLUSTER 16
+// Cards a process may launch B3's cluster split on.
+#define MAX_DEVICES 64
 
 // One ray's S sets in the compute type C (fields.cuh): the shared origin,
 // each set's direction and inverse direction (rounded to C on entry) and
@@ -339,9 +341,20 @@ static cudaError_t launch(const float* o, const float* dirs, int R,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   auto kernel = multi_chord_split_kernel<S, C>;
   if (K > 8) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    // Set once per card and instantiation, at its first launch: a
+    // captured frame (models/frame_graph.py) follows an eager warm-up,
+    // so no attribute call falls inside a CUDA graph capture.
+    static bool allowed[MAX_DEVICES] = {};
+    int device = 0;
+    cudaError_t e = cudaGetDevice(&device);
     if (e != cudaSuccess) return e;
+    if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    if (!allowed[device]) {
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return e;
+      allowed[device] = true;
+    }
   }
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;

@@ -1,0 +1,262 @@
+"""The compiled frame: one serving frame captured as a CUDA graph.
+
+The port's counterpart of the JAX package's jitted step (``make_forward``
+returns a ``jax.jit`` step, audio_raytracer_tpu/models/raytracer.py:78-85,
+and the loop jits its own, runtime/orchestrator.py:98-131): from the
+second frame of a key on, a frame is one launch of one captured program,
+and new scene values reach it as the contents of its input buffers.
+
+A ``FrameGraph`` holds static buffers for the frame's inputs (origin [3],
+directions [R, 3], a scene, and a ``KernelBackend`` built from that
+scene with every table the frame reads), one ``torch.cuda.CUDAGraph`` of
+``forward`` over them, and the frame's outputs. Per key (``key``: every
+host value a launch bakes in, the config, the shapes of the inputs and
+of the engine's tables, and B2's free and owned row counts):
+
+1. the first call runs ``forward`` eagerly on the static buffers (the
+   warm-up, the counterpart of JAX's first-call trace);
+2. the second captures it, and it and every later call replay the graph.
+
+A call copies its origin and directions into the static buffers. Its
+scene, unless ``reuse_scene`` says it is the scene object of the call
+before, is copied into the static scene, a fresh engine is built from it
+eagerly, and that engine's tensors are copied into the static engine's
+of the same attribute and cache key. A new key drops the graph and its
+memory pool and starts again at 1. The outputs are copied out of the
+graph's memory after every frame, so no later frame overwrites what a
+caller holds (``perceived_position`` would otherwise alias the static
+scene's target positions).
+
+A capture or replay error raises: nothing runs eagerly on the card after
+the warm-up. On the CPU there is no graph: steps 1 and 2 run the same
+closure on the static buffers, so the refill, the key and the copy out
+are the same code there.
+
+Launch counts: the B1-B9 wrappers count when they enqueue a kernel. A
+capture enqueues none, so the counts it made are taken back and added
+again at every replay: ``run_closest_hit.launches`` and the rest keep
+counting the kernels launched on the card.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from audio_raytracer_tpu_torch.models.raytracer import forward
+from audio_raytracer_tpu_torch.ops.backend import NO_SKIP
+from audio_raytracer_tpu_torch.ops.cuda import calibrate as C
+from audio_raytracer_tpu_torch.ops.cuda import fused as F
+from audio_raytracer_tpu_torch.ops.cuda import kernels as K
+from audio_raytracer_tpu_torch.ops.cuda.backend import KernelBackend
+from audio_raytracer_tpu_torch.types import (
+    Scene,
+    TargetSettings,
+    TraceConfig,
+    TraceResult,
+    check_device,
+    map_tensors,
+    resolve_device,
+    tensors_of,
+)
+
+Tensor = torch.Tensor
+
+
+def launch_counters() -> list[tuple[object, str]]:
+    """(wrapper, attribute) of every launch count of B1-B9."""
+    wrappers = (K.run_closest_hit, F.run_multi_any_hit, F.run_multi_chord,
+                F.run_multi_chord_dens_bwd, F.run_multi_chord_bwd,
+                K.run_any_hit, K.run_chord_loss, K.run_chord_loss_bwd,
+                C.run_calibrate)
+    return [(w, a) for w in wrappers for a in ("launches", "launches_bf16")
+            if hasattr(w, a)]
+
+
+def frame_skip_sets(num_targets: int) -> list[tuple[int, ...]]:
+    """The skip targets of each B2 launch of a frame: the echo set's
+    NO_SKIP, then one set per target (ops/trace.py::
+    _secondary_occlusion), in groups of at most MAX_SETS."""
+    skips = (NO_SKIP, *range(num_targets))
+    return [skips[g] for g in F.set_groups(len(skips))]
+
+
+def engine_state(engine: KernelBackend) -> dict:
+    """Every tensor and host int of a kernel engine by attribute and cache
+    key: its tables, the derived tables of ``Fields.derived`` and the row
+    counts cached beside them."""
+    out = {}
+
+    def walk(name, x):
+        if isinstance(x, Tensor) or isinstance(x, int):
+            out[name] = x
+        elif isinstance(x, K.Fields):
+            for f in ("sph", "aabb", "obb"):
+                walk(f"{name}.{f}", getattr(x, f))
+            for k, v in x.derived.items():
+                walk(f"{name}[{k!r}]", v)
+        elif isinstance(x, tuple):
+            for i, v in enumerate(x):
+                walk(f"{name}[{i}]", v)
+        else:
+            raise TypeError(f"{name}: no rule for {type(x).__name__}")
+
+    walk("fields", engine.fields)
+    if engine.total:
+        walk("geom_tab", engine._geom_tab)
+        walk("mat_tab", engine._mat_tab)
+    return out
+
+
+def _describe(x):
+    """A tensor's shape and dtype, or the host value itself."""
+    if isinstance(x, Tensor):
+        return tuple(x.shape), x.dtype
+    return x
+
+
+def _copy_out(out):
+    """(result, settings) with every tensor copied: nothing of what a
+    caller holds lies in the static buffers or the graph's pool."""
+    return tuple(map_tensors(torch.clone, x) for x in out)
+
+
+class FrameGraph:
+    """``step(origin, directions, scene)`` -> (TraceResult, TargetSettings)
+    of ``forward(..., cfg, collect_debug, backend=<kernel engine>)``, the
+    frame replayed from a captured CUDA graph from the second call of a
+    key on (see the module's docstring).
+
+    Counters: ``warmups``, ``captures`` and ``replays`` (frames run each
+    way) and ``refills`` (scenes copied in); host milliseconds of the
+    latest ``capture_ms`` (capture, the first replay excluded),
+    ``refill_ms`` (scene copy, engine build and copy) and ``replay_ms``
+    (graph launch and the outputs' copies)."""
+
+    def __init__(self, cfg: TraceConfig, collect_debug: bool = False,
+                 device="cuda"):
+        self.cfg = cfg
+        self.collect_debug = collect_debug
+        self.device = resolve_device(device)
+        self._capturing = self.device.type == "cuda"
+        self.key = None
+        self.warmups = self.captures = self.replays = self.refills = 0
+        self.capture_ms = self.refill_ms = self.replay_ms = 0.0
+        self._scene = self._engine = self._state = None
+        self._source = self._io = self._shapes = None
+        self._drop_graph()
+
+    def _drop_graph(self):
+        """Forget the graph, its outputs (in its memory pool) and its
+        launch counts; the next frame is a warm-up."""
+        self._graph = None
+        self._out = None
+        self._launches = {}
+        self._captured = False
+        self._warm = False
+
+    @torch.no_grad()
+    def __call__(self, origin: Tensor, directions: Tensor, scene: Scene,
+                 reuse_scene: bool = False):
+        check_device(self.device, origin=origin, directions=directions,
+                     scene=scene.target_positions)
+        if not (reuse_scene and scene is self._source
+                and self._io_shapes(origin, directions) == self._io):
+            self._load(origin, directions, scene)
+        self._origin.copy_(origin)
+        self._directions.copy_(directions)
+        if not self._warm:
+            out = self._frame()
+            self._check_tables()
+            self._warm = True
+            self.warmups += 1
+            return _copy_out(out)
+        if not self._captured:
+            self._capture()
+        t0 = time.perf_counter()
+        out = _copy_out(self._replay())
+        self.replay_ms = (time.perf_counter() - t0) * 1e3
+        return out
+
+    @staticmethod
+    def _io_shapes(origin, directions):
+        return tuple((tuple(x.shape), x.dtype) for x in (origin, directions))
+
+    def _load(self, origin, directions, scene):
+        """The scene into the static buffers and the engine built from it
+        into the static engine; a new key starts over."""
+        t0 = time.perf_counter()
+        io = self._io_shapes(origin, directions)
+        shapes = (io, tuple(_describe(t) for t in tensors_of(scene)))
+        if shapes == self._shapes:
+            for mine, theirs in zip(tensors_of(self._scene),
+                                    tensors_of(scene)):
+                mine.copy_(theirs)
+        else:
+            self._drop_graph()
+            self._scene = map_tensors(torch.clone, scene)
+            self._origin, self._directions = (
+                x.clone(memory_format=torch.contiguous_format)
+                for x in (origin, directions))
+            self._io, self._shapes = io, shapes
+        engine = KernelBackend(self._scene,
+                               compute_dtype=self.cfg.compute_torch_dtype)
+        engine.build_tables(frame_skip_sets(self._scene.num_targets))
+        state = engine_state(engine)
+        key = (self.cfg, self.collect_debug, shapes,
+               tuple((n, _describe(v)) for n, v in state.items()))
+        if key == self.key:
+            for n, t in state.items():
+                if isinstance(t, Tensor):
+                    self._state[n].copy_(t)
+        else:
+            self._drop_graph()
+            self._engine, self._state, self.key = engine, state, key
+        self._source = scene
+        self.refills += 1
+        self.refill_ms = (time.perf_counter() - t0) * 1e3
+
+    def _frame(self) -> tuple[TraceResult, TargetSettings]:
+        return forward(self._origin, self._directions, self._scene,
+                       self.cfg, self.collect_debug, backend=self._engine,
+                       device=self.device)
+
+    def _check_tables(self):
+        """Raise if the warm-up built a table that ``build_tables`` did
+        not: a capture would build it lazily, and a refill leave it
+        stale."""
+        grown = set(engine_state(self._engine)) - set(self._state)
+        if grown:
+            raise RuntimeError(f"the frame built tables lazily: {grown}")
+
+    def _capture(self):
+        t0 = time.perf_counter()
+        counters = launch_counters()
+        before = [getattr(w, a) for w, a in counters]
+        try:
+            if self._capturing:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    self._out = self._frame()
+                self._graph = graph
+        finally:
+            after = [getattr(w, a) for w, a in counters]
+            for (w, a), n in zip(counters, before):
+                setattr(w, a, n)
+        self._launches = {c: m - n for c, n, m in zip(counters, before, after)
+                          if m != n}
+        self._captured = True
+        self.captures += 1
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def _replay(self):
+        if not self._capturing:  # the CPU: the closure itself
+            self._out = self._frame()
+        else:
+            self._graph.replay()
+            for (w, a), n in self._launches.items():
+                setattr(w, a, getattr(w, a) + n)
+        self.replays += 1
+        return self._out

@@ -89,8 +89,18 @@ def forward(origin: Tensor, directions: Tensor, scene: Scene,
 def make_forward(cfg: TraceConfig, collect_debug: bool = False,
                  backend: str = "kernel", device="cuda"):
     """``step(origin, directions, scene)`` with the config closed over,
-    running on ``device``."""
+    running on ``device``, the counterpart of the JAX package's jitted
+    step. With the kernel backend on the card, ``step`` is a
+    ``FrameGraph`` (models/frame_graph.py): the first call of a key runs
+    eagerly, later ones replay one captured CUDA graph. On the CPU, with
+    ``backend="dense"`` (the plain reference a graph is held against) and
+    with an engine object (its caller's), ``step`` runs ``forward``
+    eagerly."""
     dev = resolve_device(device)
+    if backend == "kernel" and dev.type == "cuda":
+        from audio_raytracer_tpu_torch.models.frame_graph import FrameGraph
+
+        return FrameGraph(cfg, collect_debug, device=dev)
 
     @torch.no_grad()
     def step(origin, directions, scene):

@@ -145,6 +145,19 @@ class KernelBackend:
             uni = intersect.unified_arrays(scene)
             self._geom_tab, self._mat_tab = build_attr_tabs(uni, self.total)
 
+    def build_tables(self, skip_sets) -> None:
+        """Build now every table a frame's launches read in the engine's
+        tier: B1's, B2's for each tuple of skip targets in ``skip_sets``
+        and the rounded tables of the bfloat16 plain versions. Built
+        lazily inside a captured frame (models/frame_graph.py) they would
+        fail: their row selections wait for the device."""
+        if not self.total:
+            return
+        K.closest_tables(self.fields, self.compute_dtype)
+        for skips in skip_sets:
+            K.occlusion_tables(self.fields, skips, self.compute_dtype)
+        self.fields.rounded(self.compute_dtype)
+
     @property
     def recompute_winner_t(self) -> bool:
         """The kernel's t has no gradient; with ``differentiable`` the

@@ -41,8 +41,9 @@ def to_matrix(q: Tensor) -> Tensor:
 
 
 def inverse(q: Tensor) -> Tensor:
-    """Inverse of a unit quaternion: its conjugate."""
-    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    """Inverse of a unit quaternion: its conjugate. No host data: a
+    captured frame (models/frame_graph.py) calls it."""
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def multiply(a: Tensor, b: Tensor) -> Tensor:

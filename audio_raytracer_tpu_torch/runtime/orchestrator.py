@@ -8,7 +8,11 @@ while jobs run (``computeAsync``, AudioRaytracingManager.cs:13). Here
 one forward frame on a CUDA stream the loop owns without waiting for it,
 and returns the most recent *completed* frame's settings. Completion is a
 ``torch.cuda.Event`` recorded after the frame on that stream and polled
-with ``query()``: no host thread waits on the device.
+with ``query()``: no host thread waits on the device. With the kernel
+backend the frame is the loop's ``FrameGraph`` (models/frame_graph.py),
+the counterpart of the JAX loop's jitted step: from its second frame on
+a tick copies the origin (and a changed snapshot) into the graph's
+buffers and launches one captured CUDA graph.
 
 With ``mesh=`` the loop serves through the sharded forward
 (``parallel/sharded.py``), one process per rank (the JAX loop drives
@@ -27,6 +31,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from audio_raytracer_tpu_torch.models.frame_graph import FrameGraph
 from audio_raytracer_tpu_torch.models.raytracer import forward, make_backend
 from audio_raytracer_tpu_torch.ops.fibonacci import fibonacci_directions
 from audio_raytracer_tpu_torch.parallel import comm
@@ -109,6 +114,14 @@ class AsyncRaytraceLoop:
     CPU), "dense" (plain [rays, prims] grids) or an engine object with
     the backend protocol, used as it is for every frame.
 
+    ``graph`` (one card, the kernel backend): each frame goes through the
+    loop's ``FrameGraph``, a captured CUDA graph replayed from the second
+    frame of a key on (a growing registry or a changed owner or activity
+    makes a new key; a moved primitive does not); ``graph_frames`` is
+    that object. On the CPU it runs the same frame on its static
+    buffers. ``graph=False`` enqueues every frame op by op, one engine
+    per snapshot: the eager baseline the graph is measured against.
+
     ``device="cpu"`` runs every frame synchronously inside ``tick`` (a
     frame is always done when probed). The kernel engine runs in
     ``cfg.compute_dtype``'s tier.
@@ -137,7 +150,8 @@ class AsyncRaytraceLoop:
     """
 
     def __init__(self, registry, cfg: TraceConfig, backend="kernel",
-                 compute_async: bool = True, device="cuda", mesh=None):
+                 compute_async: bool = True, device="cuda", mesh=None,
+                 graph: bool = True):
         self.mesh = mesh
         self._leader = mesh is None or dist.get_rank() == 0
         if (registry is not None) != self._leader:
@@ -147,12 +161,14 @@ class AsyncRaytraceLoop:
         self.registry = registry
         self.compute_async = compute_async
         self._backend = backend
+        self._use_graph = graph and mesh is None and backend == "kernel"
         self.device = mesh.device if mesh is not None \
             else resolve_device(device)
         self._cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._scene = None
         self._engine = None
+        self.graph_frames = None
         self._adopt_config(cfg)
         self._in_flight = None
         self._events = None
@@ -177,6 +193,8 @@ class AsyncRaytraceLoop:
         self._engine = None
         if self.mesh is None:
             self.cfg, self._directions = cfg, directions
+            self.graph_frames = FrameGraph(cfg, device=self.device) \
+                if self._use_graph else None
             return
         shards = self.mesh.ray_shards
         if cfg.ray_count % shards:
@@ -259,6 +277,12 @@ class AsyncRaytraceLoop:
     def _frame(self, origin, scene):
         if self.mesh is not None:
             return self._step(origin, self._directions, scene)
+        if self.graph_frames is not None:
+            # The registry hands back the same snapshot object until the
+            # scene changes: only a new one is copied in.
+            result, settings = self.graph_frames(origin, self._directions,
+                                                 scene, reuse_scene=True)
+            return settings, result.reverb_ir
         if self._engine is None:
             self._engine = make_backend(scene, self._backend,
                                         self.cfg.compute_torch_dtype)

@@ -643,6 +643,7 @@ def measure_medians(scene, dirs, dev, steps=3) -> dict:
 
     def median(fn):
         fn()
+        fn()  # a make_forward step captures its frame graph here
         torch.cuda.synchronize()
         times = []
         for _ in range(steps):

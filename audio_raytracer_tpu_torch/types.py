@@ -50,6 +50,18 @@ def check_device(dev: torch.device, **tensors) -> None:
             raise ValueError(f"{name} is on {x.device}, expected {dev}")
 
 
+def map_tensors(fn, obj):
+    """``obj`` with ``fn(t)`` in place of every tensor t of it (a tensor
+    or a nested dataclass of tensors; other fields kept)."""
+    if isinstance(obj, Tensor):
+        return fn(obj)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: map_tensors(fn, getattr(obj, f.name))
+            for f in dataclasses.fields(obj)})
+    return obj
+
+
 def tensors_of(obj):
     """Every tensor of a tensor or a (nested) dataclass of tensors."""
     if isinstance(obj, Tensor):

@@ -256,9 +256,12 @@ class TestAsyncLoop:
         assert loop.frames_dispatched == 4 and loop.frames_harvested == 3
 
     def test_one_engine_per_snapshot(self, reg):
+        # The eager frames' engine (graph=False); the graph's refills are
+        # held in tests/test_torch_frame_graph.py.
         h = reg.add_aabb([0, 0, 6], [2, 2, 1])
         reg.add_target([0, 0, 3])
-        loop = AsyncRaytraceLoop(reg, TraceConfig(ray_count=32), device=CPU)
+        loop = AsyncRaytraceLoop(reg, TraceConfig(ray_count=32), device=CPU,
+                                 graph=False)
         loop.tick([0, 0, 0])
         engine = loop._engine
         loop.tick([0.5, 0, 0])  # same snapshot: same engine
