@@ -113,22 +113,28 @@ def adam_from_arrays(mu, nu, count, optimizer):
     (``SceneParams.leaves()`` or ``PoseParams.leaves()``, which is the
     order of ``jax.tree.leaves`` of the JAX structure); ``count`` is the
     number of steps taken. They become each parameter's ``exp_avg``,
-    ``exp_avg_sq`` and ``step``, on the parameter's device.
+    ``exp_avg_sq`` and ``step``, on the parameter's device; ``step`` is a
+    float32 scalar on the CPU, or on the parameter's device for a
+    ``capturable`` (or ``fused``) optimizer, as each keeps it.
     """
-    params = [p for group in optimizer.param_groups for p in group["params"]]
+    params, on_device = [], []
+    for group in optimizer.param_groups:
+        params += group["params"]
+        on_device += [bool(group.get("capturable") or group.get("fused"))
+                      ] * len(group["params"])
     if not len(mu) == len(nu) == len(params):
         raise ValueError(f"{len(mu)} first and {len(nu)} second moments "
                          f"for {len(params)} parameters")
-    for p, m, v in zip(params, mu, nu):
+    for p, m, v, here in zip(params, mu, nu, on_device):
         exp_avg = to_tensor(m, p.dtype, p.device)
         exp_avg_sq = to_tensor(v, p.dtype, p.device)
         if exp_avg.shape != p.shape or exp_avg_sq.shape != p.shape:
             raise ValueError(f"moments of shape {tuple(exp_avg.shape)} and "
                              f"{tuple(exp_avg_sq.shape)} for a parameter of "
                              f"shape {tuple(p.shape)}")
-        # Adam keeps its step count as a float32 scalar on the CPU.
         optimizer.state[p] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
+            "step": torch.tensor(float(count), dtype=torch.float32,
+                                 device=p.device if here else None),
             "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq}
     return optimizer
 

@@ -9,7 +9,9 @@ authored materials, reinitialize (or perturb) the material parameters,
 and recover them by gradient descent through the differentiable tracer
 (models/differentiable.py — the chord adjoints as CUDA kernels on the
 kernel backend, straight-through trajectories). It runs on the card
-unless asked for the CPU (``--device cpu``).
+unless asked for the CPU (``--device cpu``); there, with the kernel
+backend, every step after the second replays one captured CUDA graph
+(models/step_graph.py), --mesh steps excepted.
 
 Usage:
   python -m audio_raytracer_tpu_torch.demo.train_materials      # sample
@@ -300,6 +302,7 @@ def _train(args, mesh=None):
     )
     from audio_raytracer_tpu_torch.types import Materials, tensors_of
     from audio_raytracer_tpu_torch.utils.checkpoint import (
+        load_optimizer_state,
         restore_checkpoint,
         save_checkpoint,
     )
@@ -377,8 +380,8 @@ def _train(args, mesh=None):
         if opt_state is not None:
             opt_state = _shard_state(opt_state, mesh)
     opt = init(params)
-    if opt_state is not None:
-        opt.load_state_dict(opt_state)
+    if opt_state is not None:  # before the first step: the graph's key
+        load_optimizer_state(opt, opt_state)
 
     def full_state():
         if mesh is None:

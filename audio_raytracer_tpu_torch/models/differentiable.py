@@ -27,7 +27,11 @@ kernels B1-B3 forward, B4 or B5 backward; their plain versions for a
 scene on the CPU) or "dense" (plain [rays, prims] grids under autograd),
 or an engine object with the backend protocol (``PrimShardedBackend``
 for a shard of the primitives). Entry points run on ``device="cuda"``
-unless the caller asks for ``device="cpu"``.
+unless the caller asks for ``device="cpu"``. With the kernel backend on
+the card the three step factories return a ``StepGraph``
+(models/step_graph.py): from the second step of a key on, a training
+step is one replay of a captured CUDA graph, as the JAX package's
+jitted steps are one compiled program.
 
 Ray sharding (``parallel/train.py``): ``loudness_map``'s ``group`` sums
 the partial sums over a process group of ray shards, and
@@ -39,7 +43,6 @@ it types ``shard_map``'s scan carries, and the port has neither.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 
@@ -123,9 +126,16 @@ class PoseParams:
 
 def adam(lr: float = 1e-2):
     """Optimizer factory with optax.adam's defaults: ``adam(lr)(tensors)``
-    is ``torch.optim.Adam(tensors, lr, betas=(0.9, 0.999), eps=1e-8)``."""
-    return functools.partial(torch.optim.Adam, lr=lr, betas=(0.9, 0.999),
-                             eps=1e-8)
+    is ``torch.optim.Adam(tensors, lr, betas=(0.9, 0.999), eps=1e-8)``,
+    ``capturable`` for tensors on the card (its step counts live there,
+    so a captured training step can update them; models/step_graph.py).
+    A capturable Adam refuses CPU tensors."""
+    def make(tensors):
+        tensors = list(tensors)
+        return torch.optim.Adam(tensors, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                capturable=any(t.is_cuda for t in tensors))
+
+    return make
 
 
 def loudness_map(origin: Tensor, directions: Tensor, scene: Scene,
@@ -268,27 +278,52 @@ def _backward(loss: Tensor, leaves) -> None:
             x.grad = torch.zeros_like(x)
 
 
+def _graphed(dev, backend, graph) -> bool:
+    """Does a step factory return a ``StepGraph``? With the kernel backend
+    on the card, unless ``graph=False``; the CPU, the dense tier and an
+    engine object run the eager step (as ``make_forward``)."""
+    return graph and backend == "kernel" and dev.type == "cuda"
+
+
 def make_train_step(cfg: TraceConfig, optimizer=None, backend="kernel",
-                    device="cuda"):
+                    device="cuda", graph: bool = True):
     """Materials training. Returns ``(step, init)``:
     ``opt = init(params)`` marks the 9 material tensors trainable and
     builds the optimizer over them (``optimizer``: a factory taking the
     tensors, default ``adam(1e-2)``); ``step(params, opt, scene, origin,
     directions, target) -> (params, opt, loss)`` takes one step, updating
-    the tensors in place. The kernel backend's chord adjoint is B4."""
+    the tensors in place. The kernel backend's chord adjoint is B4.
+
+    With the kernel backend on the card ``step`` is a ``StepGraph``
+    (models/step_graph.py): its first call of a key runs eagerly, later
+    ones replay one captured CUDA graph of the whole step (forward, B4
+    backward and the optimizer). ``graph=False`` gives the eager step, the
+    reference the graph is held against."""
     dev = resolve_device(device)
     make_opt = optimizer or adam()
 
     def init(params: SceneParams):
         return make_opt(_trainable(params.leaves()))
 
-    def step(params, opt, scene, origin, directions, target):
+    def body(params, opt, scene, origin, directions, target,
+             backend=backend):
         opt.zero_grad(set_to_none=False)
         loss = loudness_loss(params, scene, origin, directions, cfg, target,
                              backend=backend, device=dev)
         _backward(loss, params.leaves())
         opt.step()
-        return params, opt, loss.detach()
+        return loss.detach()
+
+    if _graphed(dev, backend, graph):
+        from audio_raytracer_tpu_torch.models.step_graph import StepGraph
+
+        return StepGraph(cfg, body, SceneParams.into_scene,
+                         SceneParams.leaves, ("materials",),
+                         device=dev), init
+
+    def step(params, opt, scene, origin, directions, target):
+        return params, opt, body(params, opt, scene, origin, directions,
+                                 target)
 
     return step, init
 
@@ -298,14 +333,18 @@ def make_train_step(cfg: TraceConfig, optimizer=None, backend="kernel",
 # ---------------------------------------------------------------------------
 
 
+def _posed(pose: PoseParams, scene: Scene) -> Scene:
+    """``scene`` with the audio-target positions of ``pose``."""
+    return dataclasses.replace(scene,
+                               target_positions=pose.target_positions)
+
+
 def pose_loss(pose: PoseParams, scene: Scene, directions, cfg: TraceConfig,
               target: Loudness, backend="kernel",
               device="cuda") -> Tensor:
     """MSE between the loudness map traced at ``pose`` and ``target``;
     the materials stay those of ``scene``."""
-    scene_p = dataclasses.replace(scene,
-                                  target_positions=pose.target_positions)
-    pred = loudness_map(pose.origin, directions, scene_p, cfg,
+    pred = loudness_map(pose.origin, directions, _posed(pose, scene), cfg,
                         backend=backend, device=device)
     return _loudness_mse(pred, target)
 
@@ -313,20 +352,21 @@ def pose_loss(pose: PoseParams, scene: Scene, directions, cfg: TraceConfig,
 def make_pose_recovery_step(cfg: TraceConfig, optimizer=None,
                             backend="kernel",
                             recover: tuple = ("origin", "targets"),
-                            device="cuda"):
+                            device="cuda", graph: bool = True):
     """Pose recovery. Returns ``(step, init)``: ``opt = init(pose)``;
     ``step(pose, opt, scene, directions, target) -> (pose, opt, loss)``.
     ``recover`` names the leaves that move ("origin", "targets"); the
     others get zero gradients before the optimizer, so their optimizer
     moments stay zero and they keep their values. The kernel backend
-    runs the full adjoint (B5)."""
+    runs the full adjoint (B5). ``graph`` as ``make_train_step``'s."""
     dev = resolve_device(device)
     make_opt = optimizer or adam()
+    recover = tuple(recover)
 
     def init(pose: PoseParams):
         return make_opt(_trainable(pose.leaves()))
 
-    def step(pose, opt, scene, directions, target):
+    def body(pose, opt, scene, directions, target, backend=backend):
         opt.zero_grad(set_to_none=False)
         loss = pose_loss(pose, scene, directions, cfg, target,
                          backend=backend, device=dev)
@@ -336,7 +376,16 @@ def make_pose_recovery_step(cfg: TraceConfig, optimizer=None,
             if name not in recover:
                 x.grad.zero_()
         opt.step()
-        return pose, opt, loss.detach()
+        return loss.detach()
+
+    if _graphed(dev, backend, graph):
+        from audio_raytracer_tpu_torch.models.step_graph import StepGraph
+
+        return StepGraph(cfg, body, _posed, PoseParams.leaves,
+                         ("pose", recover), device=dev), init
+
+    def step(pose, opt, scene, directions, target):
+        return pose, opt, body(pose, opt, scene, directions, target)
 
     return step, init
 
@@ -351,9 +400,14 @@ def stack_loudness(recordings: list) -> Loudness:
     return Loudness(*(stack(f.name) for f in dataclasses.fields(Loudness)))
 
 
+def _sourced(target_positions: Tensor, scene: Scene) -> Scene:
+    """``scene`` with the audio-target positions ``target_positions``."""
+    return dataclasses.replace(scene, target_positions=target_positions)
+
+
 def make_source_recovery_step(cfg: TraceConfig, num_listeners: int,
                               optimizer=None, backend="kernel",
-                              device="cuda"):
+                              device="cuda", graph: bool = True):
     """Source localization by triangulation: recover the audio-target
     positions from loudness recordings taken at ``num_listeners`` known
     listener positions (one recording's scalars cannot pin a 3-D
@@ -363,17 +417,17 @@ def make_source_recovery_step(cfg: TraceConfig, num_listeners: int,
     ``step(target_positions, opt, scene, origins, directions,
     recordings) -> (target_positions, opt, loss)`` with ``origins``
     [L, 3] and ``recordings`` a Loudness with leading axis L
-    (``stack_loudness``)."""
+    (``stack_loudness``). ``graph`` as ``make_train_step``'s."""
     dev = resolve_device(device)
     make_opt = optimizer or adam()
 
     def init(target_positions: Tensor):
         return make_opt(_trainable([target_positions]))
 
-    def step(target_positions, opt, scene, origins, directions, recordings):
+    def body(target_positions, opt, scene, origins, directions, recordings,
+             backend=backend):
         opt.zero_grad(set_to_none=False)
-        scene_p = dataclasses.replace(scene,
-                                      target_positions=target_positions)
+        scene_p = _sourced(target_positions, scene)
         engine = make_backend(scene_p, backend, differentiable=True)
         total = 0.0
         for li in range(num_listeners):
@@ -386,6 +440,16 @@ def make_source_recovery_step(cfg: TraceConfig, num_listeners: int,
         loss = total / num_listeners
         _backward(loss, [target_positions])
         opt.step()
-        return target_positions, opt, loss.detach()
+        return loss.detach()
+
+    if _graphed(dev, backend, graph):
+        from audio_raytracer_tpu_torch.models.step_graph import StepGraph
+
+        return StepGraph(cfg, body, _sourced, lambda tp: [tp],
+                         ("source", num_listeners), device=dev), init
+
+    def step(target_positions, opt, scene, origins, directions, recordings):
+        return target_positions, opt, body(target_positions, opt, scene,
+                                           origins, directions, recordings)
 
     return step, init

@@ -36,6 +36,11 @@ Launch counts: the B1-B9 wrappers count when they enqueue a kernel. A
 capture enqueues none, so the counts it made are taken back and added
 again at every replay: ``run_closest_hit.launches`` and the rest keep
 counting the kernels launched on the card.
+
+``GraphedCall`` holds what the frame shares with the compiled training
+steps (models/step_graph.py): the static scene and engine and their
+refill, the key, the warm-up, capture and replays, and the launch
+bookkeeping.
 """
 
 from __future__ import annotations
@@ -122,105 +127,96 @@ def _copy_out(out):
     return tuple(map_tensors(torch.clone, x) for x in out)
 
 
-class FrameGraph:
-    """``step(origin, directions, scene)`` -> (TraceResult, TargetSettings)
-    of ``forward(..., cfg, collect_debug, backend=<kernel engine>)``, the
-    frame replayed from a captured CUDA graph from the second call of a
-    key on (see the module's docstring).
+class GraphedCall:
+    """What the compiled frame and the compiled training steps
+    (models/step_graph.py) share: a static scene and a kernel engine built
+    from it (``_make_engine``), refilled from a new scene (``_refill``);
+    the key (``_set_key``); the warm-up, the capture and the replays of a
+    closure over the static buffers, its output copied out (``_run``);
+    and the launch bookkeeping.
 
-    Counters: ``warmups``, ``captures`` and ``replays`` (frames run each
+    Counters: ``warmups``, ``captures`` and ``replays`` (calls run each
     way) and ``refills`` (scenes copied in); host milliseconds of the
     latest ``capture_ms`` (capture, the first replay excluded),
     ``refill_ms`` (scene copy, engine build and copy) and ``replay_ms``
-    (graph launch and the outputs' copies)."""
+    (graph launch and the output's copy)."""
 
-    def __init__(self, cfg: TraceConfig, collect_debug: bool = False,
-                 device="cuda"):
-        self.cfg = cfg
-        self.collect_debug = collect_debug
+    def __init__(self, device):
         self.device = resolve_device(device)
         self._capturing = self.device.type == "cuda"
         self.key = None
         self.warmups = self.captures = self.replays = self.refills = 0
         self.capture_ms = self.refill_ms = self.replay_ms = 0.0
-        self._scene = self._engine = self._state = None
-        self._source = self._io = self._shapes = None
+        self._scene = self._engine = self._state = self._source = None
+        self._scene_shapes = self._engine_shapes = None
         self._drop_graph()
 
     def _drop_graph(self):
-        """Forget the graph, its outputs (in its memory pool) and its
-        launch counts; the next frame is a warm-up."""
+        """Forget the graph, its output (in its memory pool) and its
+        launch counts; the next call is a warm-up."""
         self._graph = None
         self._out = None
         self._launches = {}
         self._captured = False
         self._warm = False
 
-    @torch.no_grad()
-    def __call__(self, origin: Tensor, directions: Tensor, scene: Scene,
-                 reuse_scene: bool = False):
-        check_device(self.device, origin=origin, directions=directions,
-                     scene=scene.target_positions)
-        if not (reuse_scene and scene is self._source
-                and self._io_shapes(origin, directions) == self._io):
-            self._load(origin, directions, scene)
-        self._origin.copy_(origin)
-        self._directions.copy_(directions)
-        if not self._warm:
-            out = self._frame()
-            self._check_tables()
-            self._warm = True
-            self.warmups += 1
-            return _copy_out(out)
-        if not self._captured:
-            self._capture()
-        t0 = time.perf_counter()
-        out = _copy_out(self._replay())
-        self.replay_ms = (time.perf_counter() - t0) * 1e3
-        return out
+    def _make_engine(self, scene: Scene) -> KernelBackend:
+        """A kernel engine on ``scene`` with every table the closure's
+        launches read built (``KernelBackend.build_tables``)."""
+        raise NotImplementedError
 
-    @staticmethod
-    def _io_shapes(origin, directions):
-        return tuple((tuple(x.shape), x.dtype) for x in (origin, directions))
-
-    def _load(self, origin, directions, scene):
-        """The scene into the static buffers and the engine built from it
-        into the static engine; a new key starts over."""
+    def _refill(self, scene: Scene):
+        """``scene`` into the static scene and the engine built from it
+        into the static engine, tensor by tensor. New scene shapes
+        replace the static scene, and new engine table shapes (or row
+        counts) the static engine; either makes a new key."""
         t0 = time.perf_counter()
-        io = self._io_shapes(origin, directions)
-        shapes = (io, tuple(_describe(t) for t in tensors_of(scene)))
-        if shapes == self._shapes:
+        shapes = tuple(_describe(t) for t in tensors_of(scene))
+        fresh = shapes != self._scene_shapes
+        if fresh:
+            self._scene = map_tensors(torch.clone, scene)
+            self._scene_shapes = shapes
+        else:
             for mine, theirs in zip(tensors_of(self._scene),
                                     tensors_of(scene)):
                 mine.copy_(theirs)
-        else:
-            self._drop_graph()
-            self._scene = map_tensors(torch.clone, scene)
-            self._origin, self._directions = (
-                x.clone(memory_format=torch.contiguous_format)
-                for x in (origin, directions))
-            self._io, self._shapes = io, shapes
-        engine = KernelBackend(self._scene,
-                               compute_dtype=self.cfg.compute_torch_dtype)
-        engine.build_tables(frame_skip_sets(self._scene.num_targets))
+        engine = self._make_engine(self._scene)
         state = engine_state(engine)
-        key = (self.cfg, self.collect_debug, shapes,
-               tuple((n, _describe(v)) for n, v in state.items()))
-        if key == self.key:
+        engine_shapes = tuple((n, _describe(v)) for n, v in state.items())
+        if fresh or engine_shapes != self._engine_shapes:
+            self._engine, self._state = engine, state
+            self._engine_shapes = engine_shapes
+        else:
             for n, t in state.items():
                 if isinstance(t, Tensor):
                     self._state[n].copy_(t)
-        else:
-            self._drop_graph()
-            self._engine, self._state, self.key = engine, state, key
         self._source = scene
         self.refills += 1
         self.refill_ms = (time.perf_counter() - t0) * 1e3
 
-    def _frame(self) -> tuple[TraceResult, TargetSettings]:
-        return forward(self._origin, self._directions, self._scene,
-                       self.cfg, self.collect_debug, backend=self._engine,
-                       device=self.device)
+    def _set_key(self, key):
+        """A new key drops the graph and its memory pool: the next call
+        is its warm-up."""
+        if key != self.key:
+            self._drop_graph()
+            self.key = key
+
+    def _run(self, closure, copy_out):
+        """``copy_out`` of the closure's output: run eagerly on the first
+        call of a key (the warm-up), captured on the second, replayed
+        from then on."""
+        if not self._warm:
+            out = copy_out(closure())
+            self._check_tables()
+            self._warm = True
+            self.warmups += 1
+            return out
+        if not self._captured:
+            self._capture(closure)
+        t0 = time.perf_counter()
+        out = copy_out(self._replay(closure))
+        self.replay_ms = (time.perf_counter() - t0) * 1e3
+        return out
 
     def _check_tables(self):
         """Raise if the warm-up built a table that ``build_tables`` did
@@ -228,18 +224,20 @@ class FrameGraph:
         stale."""
         grown = set(engine_state(self._engine)) - set(self._state)
         if grown:
-            raise RuntimeError(f"the frame built tables lazily: {grown}")
+            raise RuntimeError(f"the closure built tables lazily: {grown}")
 
-    def _capture(self):
+    def _capture(self, closure):
         t0 = time.perf_counter()
         counters = launch_counters()
         before = [getattr(w, a) for w, a in counters]
         try:
             if self._capturing:
                 graph = torch.cuda.CUDAGraph()
+                # Thread-local: the backward of a training step launches
+                # from autograd's device thread onto the capturing stream.
                 with torch.cuda.graph(graph,
                                       capture_error_mode="thread_local"):
-                    self._out = self._frame()
+                    self._out = closure()
                 self._graph = graph
         finally:
             after = [getattr(w, a) for w, a in counters]
@@ -251,12 +249,57 @@ class FrameGraph:
         self.captures += 1
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
-    def _replay(self):
+    def _replay(self, closure):
         if not self._capturing:  # the CPU: the closure itself
-            self._out = self._frame()
+            self._out = closure()
         else:
             self._graph.replay()
             for (w, a), n in self._launches.items():
                 setattr(w, a, getattr(w, a) + n)
         self.replays += 1
         return self._out
+
+
+class FrameGraph(GraphedCall):
+    """``step(origin, directions, scene)`` -> (TraceResult, TargetSettings)
+    of ``forward(..., cfg, collect_debug, backend=<kernel engine>)``, the
+    frame replayed from a captured CUDA graph from the second call of a
+    key on (see the module's docstring). Counters and timings as
+    ``GraphedCall``'s."""
+
+    def __init__(self, cfg: TraceConfig, collect_debug: bool = False,
+                 device="cuda"):
+        self.cfg = cfg
+        self.collect_debug = collect_debug
+        self._io = None
+        super().__init__(device)
+
+    @torch.no_grad()
+    def __call__(self, origin: Tensor, directions: Tensor, scene: Scene,
+                 reuse_scene: bool = False):
+        check_device(self.device, origin=origin, directions=directions,
+                     scene=scene.target_positions)
+        io = tuple((tuple(x.shape), x.dtype) for x in (origin, directions))
+        if io != self._io:
+            self._origin, self._directions = (
+                x.clone(memory_format=torch.contiguous_format)
+                for x in (origin, directions))
+            self._io = io
+        if not (reuse_scene and scene is self._source):
+            self._refill(scene)
+        self._set_key((self.cfg, self.collect_debug,
+                       (io, self._scene_shapes), self._engine_shapes))
+        self._origin.copy_(origin)
+        self._directions.copy_(directions)
+        return self._run(self._frame, _copy_out)
+
+    def _make_engine(self, scene: Scene) -> KernelBackend:
+        engine = KernelBackend(scene,
+                               compute_dtype=self.cfg.compute_torch_dtype)
+        engine.build_tables(frame_skip_sets(scene.num_targets))
+        return engine
+
+    def _frame(self) -> tuple[TraceResult, TargetSettings]:
+        return forward(self._origin, self._directions, self._scene,
+                       self.cfg, self.collect_debug, backend=self._engine,
+                       device=self.device)

@@ -45,6 +45,8 @@ forces float32.
 
 from __future__ import annotations
 
+import copy
+
 import torch
 
 from audio_raytracer_tpu_torch.ops import intersect, quaternion
@@ -81,22 +83,24 @@ def prepare_fields(scene: Scene) -> K.Fields:
     """Per-type kernel tables in the csrc/fields.cuh layout.
 
     Inactive primitives encode guaranteed misses: sphere r2 = -1e30,
-    box miss = +inf (0 when active). The tables are detached."""
+    box miss = +inf (0 when active). The tables are detached. No tensor
+    is made from host data (the miss encodings are scalars), so the
+    build enqueues no pageable copy: the frame and step graphs' refills
+    build tables at every new scene."""
     sp, ab, ob = scene.spheres, scene.aabbs, scene.obbs
-    inf = torch.tensor(float("inf"), device=scene.device)
-    zero = torch.tensor(0.0, device=scene.device)
+    inf = float("inf")
     r2 = torch.where(sp.active, sp.radius * sp.radius, -1e30)
     sph = _table([*sp.center.unbind(1), r2, _ids_as_f32(sp.target_id),
                   sp.material.density], K.SPH_W)
     lo, hi = ab.center - ab.half_extents, ab.center + ab.half_extents
     aabb = _table([*lo.unbind(1), *hi.unbind(1),
-                   torch.where(ab.active, zero, inf),
+                   torch.where(ab.active, 0.0, inf),
                    _ids_as_f32(ab.target_id), ab.material.density], K.AABB_W)
     # World->local rotation baked into matrix rows (quaternion.to_matrix
     # of the stored inverse quaternion, AudioOBBCollider.cs:59).
     m = quaternion.to_matrix(ob.inv_rot.to(torch.float32)).reshape(-1, 9)
     obb = _table([*ob.center.unbind(1), *ob.half_extents.unbind(1),
-                  *m.unbind(1), torch.where(ob.active, zero, inf),
+                  *m.unbind(1), torch.where(ob.active, 0.0, inf),
                   _ids_as_f32(ob.target_id), ob.material.density], K.OBB_W)
     return K.Fields(sph.contiguous(), aabb.contiguous(), obb.contiguous())
 
@@ -108,8 +112,17 @@ def build_attr_tabs(uni: dict, total: int):
     geom = torch.cat([uni["kind"].to(torch.float32)[:, None], uni["center"],
                       uni["half_extents"], uni["inv_rot"],
                       uni["center"].new_zeros((total, 1))], dim=1).detach()
-    mat = torch.stack([uni["absorption"], uni["echo"]], dim=1)
-    return geom, mat
+    return geom, material_table(uni["absorption"], uni["echo"])
+
+
+def material_table(absorption: Tensor, echo: Tensor) -> Tensor:
+    """[P, 2] winner-materials table (absorption, echo), in the autograd
+    graph of its columns."""
+    return torch.stack([absorption, echo], dim=1)
+
+
+# The density column of each type table (csrc/fields.cuh).
+DENSITY_COLUMNS = (K.S_DENS, K.A_DENS, K.O_DENS)
 
 
 def attrs_from_tabs(geom_tab: Tensor, mat_tab: Tensor, idx: Tensor) -> dict:
@@ -157,6 +170,29 @@ class KernelBackend:
         for skips in skip_sets:
             K.occlusion_tables(self.fields, skips, self.compute_dtype)
         self.fields.rounded(self.compute_dtype)
+
+    def with_materials(self, scene: Scene) -> "KernelBackend":
+        """This engine on ``scene``, a scene of the same geometry whose
+        materials may be trained tensors (the step graphs of
+        models/step_graph.py call it at every replay). The density
+        columns of ``fields``, which B3, B4 and B5 read, are written in
+        place from ``scene``'s densities, and the winner-materials table
+        is made anew from its absorption and echo, in their autograd
+        graph. B1's and B2's tables read no density and stay as they
+        are. Nothing here selects rows or reads host data, so it runs
+        inside a captured CUDA graph."""
+        eng = copy.copy(self)
+        eng.scene = scene
+        mats = [p.material for p in (scene.spheres, scene.aabbs, scene.obbs)]
+        with torch.no_grad():
+            for tab, col, m in zip((self.fields.sph, self.fields.aabb,
+                                    self.fields.obb), DENSITY_COLUMNS, mats):
+                tab[:, col] = m.density
+        if self.total:
+            eng._mat_tab = material_table(
+                *(torch.cat([getattr(m, f) for m in mats])
+                  for f in ("absorption", "echo")))
+        return eng
 
     @property
     def recompute_winner_t(self) -> bool:

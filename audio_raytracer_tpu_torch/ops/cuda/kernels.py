@@ -137,9 +137,9 @@ def miss_row(width: int, device) -> Tensor:
     miss = {SPH_W: (S_R2, -1e30), AABB_W: (A_MISS, INF),
             OBB_W: (O_MISS, INF)}[width]
     tgt = {SPH_W: S_TGT, AABB_W: A_TGT, OBB_W: O_TGT}[width]
-    row[miss[0]] = miss[1]
-    row[tgt:tgt + 1] = torch.tensor([-1], dtype=torch.int32,
-                                    device=device).view(torch.float32)
+    # fill_ of a one-element slice: a scalar, no tensor from host data.
+    row[miss[0]:miss[0] + 1].fill_(miss[1])
+    row.view(torch.int32)[tgt:tgt + 1].fill_(-1)
     return row
 
 
@@ -192,9 +192,12 @@ def occlusion_tables(fields: Fields, skips, compute_dtype=torch.float32):
         for tab, col in ((fields.sph, S_TGT), (fields.aabb, A_TGT),
                          (fields.obb, O_TGT)):
             act = active_rows(tab)
-            # NO_SKIP matches no row: unowned rows carry -1.
-            owned = torch.isin(ids(tab, col), torch.tensor(
-                key, dtype=torch.int32, device=tab.device))
+            # NO_SKIP matches no row: unowned rows carry -1. Compared
+            # with each id as a scalar: no tensor made from host data.
+            tid = ids(tab, col)
+            owned = torch.zeros_like(act)
+            for k in key:
+                owned |= tid == k
             free, mine = tab[act & ~owned], tab[act & owned]
             out.append((torch.cat([pad_to_tiles(free), pad_to_tiles(mine)]),
                         free.shape[0], mine.shape[0]))

@@ -74,6 +74,21 @@ def save_checkpoint(path: str | os.PathLike, tree) -> pathlib.Path:
     return path / FILE
 
 
+def load_optimizer_state(optimizer: torch.optim.Optimizer,
+                         state_dict: dict) -> None:
+    """``optimizer.load_state_dict(state_dict)`` keeping the optimizer's
+    own ``capturable`` and ``fused``: a state saved by a run on the CPU
+    resumes in a capturable Adam on the card (its step counts moved onto
+    the parameters' device, as a captured step needs them), and one saved
+    on the card resumes on the CPU. ``load_state_dict`` alone takes both
+    flags from the saved groups."""
+    own = [{k: g[k] for k in ("capturable", "fused") if k in g}
+           for g in optimizer.param_groups]
+    groups = [dict(saved, **mine)
+              for saved, mine in zip(state_dict["param_groups"], own)]
+    optimizer.load_state_dict(dict(state_dict, param_groups=groups))
+
+
 def restore_checkpoint(path: str | os.PathLike, example_tree):
     """Restore the checkpoint in the directory ``path`` into the
     structure of ``example_tree``, each tensor on the device and dtype
