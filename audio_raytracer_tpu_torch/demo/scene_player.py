@@ -150,12 +150,16 @@ def render_wav(loaded, history, path, sample_rate=48000, dt=1.0 / 60.0,
     When the trace recorded an impulse response (the history has
     ``reverb_ir``), the IR-driven convolution tail is rendered too — the
     audible reverb the reference delegated to Unity's AudioReverbFilter.
+
+    Every buffer goes through one ``make_spatialize`` step, as the JAX
+    player's through one jitted ``spatialize``: on the card a replay of
+    its captured CUDA graph, every target sharing it.
     """
     from audio_raytracer_tpu_torch.models.spatializer import (
         DSPState,
         SpatializerSettings,
         ir_kernel_length,
-        spatialize,
+        make_spatialize,
     )
 
     dev = resolve_device(device)
@@ -173,6 +177,7 @@ def render_wav(loaded, history, path, sample_rate=48000, dt=1.0 / 60.0,
         tail_len = ir_kernel_length(ir_hist.shape[1],
                                     float(loaded.cfg.ir_max_distance),
                                     float(sample_rate)) - 1
+    spatialize = make_spatialize(settings, float(sample_rate), device=dev)
     freqs = [220.0 * (1.5 ** i) for i in range(T)]
     states = [DSPState.zero(tail_len=tail_len, device=dev) for _ in range(T)]
     # Per-frame perceived positions (moving sources pan audibly);
@@ -208,9 +213,8 @@ def render_wav(loaded, history, path, sample_rate=48000, dt=1.0 / 60.0,
             rel = targets[ti] - listener
             dist = float(np.linalg.norm(rel))
             out, states[ti], _ = spatialize(
-                buf, states[ti], settings, rt, ti, put(rel / max(dist, 1e-6)),
-                put(dist), sample_rate=float(sample_rate), reverb_ir=ir,
-                device=dev)
+                buf, states[ti], rt, ti, put(rel / max(dist, 1e-6)),
+                put(dist), reverb_ir=ir)
             mix[f * n:(f + 1) * n] += out.cpu().numpy()
 
     peak = np.abs(mix).max() or 1.0

@@ -11,7 +11,8 @@ and recover them by gradient descent through the differentiable tracer
 kernel backend, straight-through trajectories). It runs on the card
 unless asked for the CPU (``--device cpu``); there, with the kernel
 backend, every step after the second replays one captured CUDA graph
-(models/step_graph.py), --mesh steps excepted.
+(models/step_graph.py); so do --mesh steps on ranks joined by NCCL (a
+card each), while gloo ranks sharing a card step eagerly.
 
 Usage:
   python -m audio_raytracer_tpu_torch.demo.train_materials      # sample

@@ -37,10 +37,12 @@ capture enqueues none, so the counts it made are taken back and added
 again at every replay: ``run_closest_hit.launches`` and the rest keep
 counting the kernels launched on the card.
 
-``GraphedCall`` holds what the frame shares with the compiled training
-steps (models/step_graph.py): the static scene and engine and their
-refill, the key, the warm-up, capture and replays, and the launch
-bookkeeping.
+``CapturedCall`` holds the key, the warm-up, capture and replays and the
+launch bookkeeping, which the DSP chain's graph shares
+(models/spatializer.py::SpatializeGraph). ``GraphedCall`` adds what the
+frame shares with the sharded frame (parallel/sharded.py) and the
+compiled training steps (models/step_graph.py): the static scene and
+engine and their refill.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ import time
 import torch
 
 from audio_raytracer_tpu_torch.models.raytracer import forward
-from audio_raytracer_tpu_torch.ops.backend import NO_SKIP
+from audio_raytracer_tpu_torch.ops.backend import NO_SKIP, PrimShardedBackend
 from audio_raytracer_tpu_torch.ops.cuda import calibrate as C
 from audio_raytracer_tpu_torch.ops.cuda import fused as F
 from audio_raytracer_tpu_torch.ops.cuda import kernels as K
@@ -87,10 +89,14 @@ def frame_skip_sets(num_targets: int) -> list[tuple[int, ...]]:
     return [skips[g] for g in F.set_groups(len(skips))]
 
 
-def engine_state(engine: KernelBackend) -> dict:
+def engine_state(engine) -> dict:
     """Every tensor and host int of a kernel engine by attribute and cache
     key: its tables, the derived tables of ``Fields.derived`` and the row
-    counts cached beside them."""
+    counts cached beside them. Of a ``PrimShardedBackend`` over a kernel
+    engine: that engine's, and the global scan ranks of its primitives
+    (``_ranks``, which depend only on the shapes and the shard index)."""
+    if isinstance(engine, PrimShardedBackend):
+        return {**engine_state(engine.engine), "ranks": engine._ranks}
     out = {}
 
     def walk(name, x):
@@ -122,33 +128,31 @@ def _describe(x):
 
 
 def _copy_out(out):
-    """(result, settings) with every tensor copied: nothing of what a
-    caller holds lies in the static buffers or the graph's pool."""
-    return tuple(map_tensors(torch.clone, x) for x in out)
+    """The output (a tuple, or one dataclass of tensors) with every tensor
+    copied: nothing of what a caller holds lies in the static buffers or
+    the graph's pool."""
+    if isinstance(out, tuple):
+        return tuple(map_tensors(torch.clone, x) for x in out)
+    return map_tensors(torch.clone, out)
 
 
-class GraphedCall:
-    """What the compiled frame and the compiled training steps
-    (models/step_graph.py) share: a static scene and a kernel engine built
-    from it (``_make_engine``), refilled from a new scene (``_refill``);
-    the key (``_set_key``); the warm-up, the capture and the replays of a
-    closure over the static buffers, its output copied out (``_run``);
-    and the launch bookkeeping.
+class CapturedCall:
+    """A closure over static buffers run eagerly on the first call of a
+    key (the warm-up), captured as one CUDA graph on the second and
+    replayed from then on (``_run``), its output copied out; the key
+    (``_set_key``); the launch bookkeeping.
 
     Counters: ``warmups``, ``captures`` and ``replays`` (calls run each
-    way) and ``refills`` (scenes copied in); host milliseconds of the
-    latest ``capture_ms`` (capture, the first replay excluded),
-    ``refill_ms`` (scene copy, engine build and copy) and ``replay_ms``
-    (graph launch and the output's copy)."""
+    way); host milliseconds of the latest ``capture_ms`` (capture, the
+    first replay excluded) and ``replay_ms`` (graph launch and the
+    output's copy)."""
 
     def __init__(self, device):
         self.device = resolve_device(device)
         self._capturing = self.device.type == "cuda"
         self.key = None
-        self.warmups = self.captures = self.replays = self.refills = 0
-        self.capture_ms = self.refill_ms = self.replay_ms = 0.0
-        self._scene = self._engine = self._state = self._source = None
-        self._scene_shapes = self._engine_shapes = None
+        self.warmups = self.captures = self.replays = 0
+        self.capture_ms = self.replay_ms = 0.0
         self._drop_graph()
 
     def _drop_graph(self):
@@ -159,40 +163,6 @@ class GraphedCall:
         self._launches = {}
         self._captured = False
         self._warm = False
-
-    def _make_engine(self, scene: Scene) -> KernelBackend:
-        """A kernel engine on ``scene`` with every table the closure's
-        launches read built (``KernelBackend.build_tables``)."""
-        raise NotImplementedError
-
-    def _refill(self, scene: Scene):
-        """``scene`` into the static scene and the engine built from it
-        into the static engine, tensor by tensor. New scene shapes
-        replace the static scene, and new engine table shapes (or row
-        counts) the static engine; either makes a new key."""
-        t0 = time.perf_counter()
-        shapes = tuple(_describe(t) for t in tensors_of(scene))
-        fresh = shapes != self._scene_shapes
-        if fresh:
-            self._scene = map_tensors(torch.clone, scene)
-            self._scene_shapes = shapes
-        else:
-            for mine, theirs in zip(tensors_of(self._scene),
-                                    tensors_of(scene)):
-                mine.copy_(theirs)
-        engine = self._make_engine(self._scene)
-        state = engine_state(engine)
-        engine_shapes = tuple((n, _describe(v)) for n, v in state.items())
-        if fresh or engine_shapes != self._engine_shapes:
-            self._engine, self._state = engine, state
-            self._engine_shapes = engine_shapes
-        else:
-            for n, t in state.items():
-                if isinstance(t, Tensor):
-                    self._state[n].copy_(t)
-        self._source = scene
-        self.refills += 1
-        self.refill_ms = (time.perf_counter() - t0) * 1e3
 
     def _set_key(self, key):
         """A new key drops the graph and its memory pool: the next call
@@ -207,7 +177,7 @@ class GraphedCall:
         from then on."""
         if not self._warm:
             out = copy_out(closure())
-            self._check_tables()
+            self._check_warmup()
             self._warm = True
             self.warmups += 1
             return out
@@ -218,13 +188,8 @@ class GraphedCall:
         self.replay_ms = (time.perf_counter() - t0) * 1e3
         return out
 
-    def _check_tables(self):
-        """Raise if the warm-up built a table that ``build_tables`` did
-        not: a capture would build it lazily, and a refill leave it
-        stale."""
-        grown = set(engine_state(self._engine)) - set(self._state)
-        if grown:
-            raise RuntimeError(f"the closure built tables lazily: {grown}")
+    def _check_warmup(self):
+        """Raise if the warm-up left state a capture cannot make."""
 
     def _capture(self, closure):
         t0 = time.perf_counter()
@@ -260,6 +225,66 @@ class GraphedCall:
         return self._out
 
 
+class GraphedCall(CapturedCall):
+    """What the compiled frame, the sharded frame (parallel/sharded.py)
+    and the compiled training steps (models/step_graph.py) share beside
+    ``CapturedCall``'s: a static scene and a kernel engine built from it
+    (``_make_engine``), refilled from a new scene (``_refill``).
+
+    Counters beside ``CapturedCall``'s: ``refills`` (scenes copied in),
+    and host milliseconds of the latest ``refill_ms`` (scene copy, engine
+    build and copy)."""
+
+    def __init__(self, device):
+        self.refills = 0
+        self.refill_ms = 0.0
+        self._scene = self._engine = self._state = self._source = None
+        self._scene_shapes = self._engine_shapes = None
+        super().__init__(device)
+
+    def _make_engine(self, scene: Scene) -> KernelBackend:
+        """A kernel engine on ``scene`` with every table the closure's
+        launches read built (``KernelBackend.build_tables``)."""
+        raise NotImplementedError
+
+    def _refill(self, scene: Scene):
+        """``scene`` into the static scene and the engine built from it
+        into the static engine, tensor by tensor. New scene shapes
+        replace the static scene, and new engine table shapes (or row
+        counts) the static engine; either makes a new key."""
+        t0 = time.perf_counter()
+        shapes = tuple(_describe(t) for t in tensors_of(scene))
+        fresh = shapes != self._scene_shapes
+        if fresh:
+            self._scene = map_tensors(torch.clone, scene)
+            self._scene_shapes = shapes
+        else:
+            for mine, theirs in zip(tensors_of(self._scene),
+                                    tensors_of(scene)):
+                mine.copy_(theirs)
+        engine = self._make_engine(self._scene)
+        state = engine_state(engine)
+        engine_shapes = tuple((n, _describe(v)) for n, v in state.items())
+        if fresh or engine_shapes != self._engine_shapes:
+            self._engine, self._state = engine, state
+            self._engine_shapes = engine_shapes
+        else:
+            for n, t in state.items():
+                if isinstance(t, Tensor):
+                    self._state[n].copy_(t)
+        self._source = scene
+        self.refills += 1
+        self.refill_ms = (time.perf_counter() - t0) * 1e3
+
+    def _check_warmup(self):
+        """Raise if the warm-up built a table that ``build_tables`` did
+        not: a capture would build it lazily, and a refill leave it
+        stale."""
+        grown = set(engine_state(self._engine)) - set(self._state)
+        if grown:
+            raise RuntimeError(f"the closure built tables lazily: {grown}")
+
+
 class FrameGraph(GraphedCall):
     """``step(origin, directions, scene)`` -> (TraceResult, TargetSettings)
     of ``forward(..., cfg, collect_debug, backend=<kernel engine>)``, the
@@ -271,6 +296,9 @@ class FrameGraph(GraphedCall):
                  device="cuda"):
         self.cfg = cfg
         self.collect_debug = collect_debug
+        # The host values the frame bakes in beside the shapes: the key's
+        # first entries.
+        self._static = (cfg, collect_debug)
         self._io = None
         super().__init__(device)
 
@@ -287,8 +315,8 @@ class FrameGraph(GraphedCall):
             self._io = io
         if not (reuse_scene and scene is self._source):
             self._refill(scene)
-        self._set_key((self.cfg, self.collect_debug,
-                       (io, self._scene_shapes), self._engine_shapes))
+        self._set_key((*self._static, (io, self._scene_shapes),
+                       self._engine_shapes))
         self._origin.copy_(origin)
         self._directions.copy_(directions)
         return self._run(self._frame, _copy_out)

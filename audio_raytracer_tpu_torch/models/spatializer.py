@@ -22,6 +22,12 @@ Semantics replicated:
   Per the reference, only the active branch's filter state advances.
 - The IR-driven reverb tail: the tracer's impulse response convolved
   with the buffer by FFT overlap-add (``ir_to_fir``, ``convolve_tail``).
+
+``make_spatialize`` is the counterpart of the JAX player's
+``jax.jit(spatialize, static_argnames=("sample_rate",
+"volume_multiplier"))`` (demo/scene_player.py:161): on the card a
+``SpatializeGraph``, the chain captured as one CUDA graph and replayed
+per buffer.
 """
 
 from __future__ import annotations
@@ -31,11 +37,18 @@ import math
 
 import torch
 
+from audio_raytracer_tpu_torch.models.frame_graph import (
+    CapturedCall,
+    _copy_out,
+    _describe,
+)
 from audio_raytracer_tpu_torch.ops.reverb import SPEED_OF_SOUND
 from audio_raytracer_tpu_torch.types import (
     TargetSettings,
     check_device,
+    map_tensors,
     resolve_device,
+    tensors_of,
 )
 from audio_raytracer_tpu_torch.utils.curves import SampledCurve
 
@@ -373,3 +386,102 @@ def spatialize(buffer: Tensor, state: DSPState,
     # Unity AudioReverbFilter dryLevel mapping (AudioSpatializer.cs:58).
     dry_level = settings.reverb_dry_level.lerp(rt.reverb_strength)
     return x, new_state, dry_level
+
+
+def make_spatialize(settings: SpatializerSettings, sample_rate: float,
+                    volume_multiplier: float = 1.0, device="cuda"):
+    """``step(buffer, state, rt, target_index, local_dir, distance,
+    reverb_ir=None) -> (out, new_state, dry_level)``: ``spatialize`` with
+    the settings and the host values closed over, on ``device``. On the
+    card ``step`` is a ``SpatializeGraph`` (one captured CUDA graph a
+    buffer from the second call of a key on); on the CPU ``spatialize``
+    itself."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return SpatializeGraph(settings, sample_rate, volume_multiplier,
+                               device=dev)
+
+    def step(buffer, state, rt, target_index, local_dir, distance,
+             reverb_ir=None):
+        return spatialize(buffer, state, settings, rt, target_index,
+                          local_dir, distance, sample_rate,
+                          volume_multiplier, reverb_ir, device=dev)
+
+    return step
+
+
+class SpatializeGraph(CapturedCall):
+    """``step(buffer, state, rt, target_index, local_dir, distance,
+    reverb_ir=None) -> (out, new_state, dry_level)`` of ``spatialize``,
+    replayed from one captured CUDA graph from the second call of a key
+    on (``models/frame_graph.py::CapturedCall``).
+
+    Every tensor input is copied into a static buffer; ``target_index``
+    too, as a device integer, so every target of a source set shares one
+    graph, as it shares one compiled program in JAX. ``settings`` (a
+    public attribute) is read by identity: the graph reads its tensors
+    where they are. The outputs are copied out of the graph's memory:
+    ``out``, a fresh ``DSPState`` and ``dry_level``; the state passed in
+    is never written.
+
+    The key holds the host values: ``sample_rate``,
+    ``volume_multiplier``, the settings' booleans and the identity of
+    each of their tensors, whether ``reverb_ir`` and the state's
+    ``reverb_tail`` are None, and the inputs' shapes and dtypes. A new
+    key warms up and captures again. On the CPU the warm-up and the
+    replays run the chain on the static buffers. Counters and timings as
+    ``CapturedCall``'s."""
+
+    def __init__(self, settings: SpatializerSettings, sample_rate: float,
+                 volume_multiplier: float = 1.0, device="cuda"):
+        self.settings = settings
+        self.sample_rate = sample_rate
+        self.volume_multiplier = volume_multiplier
+        self._inputs = self._io = self._index = self._settings = None
+        super().__init__(device)
+
+    @torch.no_grad()
+    def __call__(self, buffer: Tensor, state: DSPState, rt: TargetSettings,
+                 target_index, local_dir: Tensor, distance: Tensor,
+                 reverb_ir: Tensor | None = None):
+        check_device(self.device, buffer=buffer, muffle=rt.muffle,
+                     local_dir=local_dir, distance=distance,
+                     state=state.muffle_prev,
+                     settings=self.settings.pan_strength)
+        inputs = (buffer, state, rt, local_dir, distance, reverb_ir)
+        io = tuple(None if x is None else tuple(
+            _describe(t) for t in tensors_of(x)) for x in inputs)
+        if io != self._io:
+            self._inputs = [map_tensors(torch.clone, x) for x in inputs]
+            self._index = torch.zeros(1, dtype=torch.int64,
+                                      device=self.device)
+            self._io = io
+        else:
+            for mine, theirs in zip(self._inputs, inputs):
+                for a, b in zip(tensors_of(mine), tensors_of(theirs)):
+                    a.copy_(b)
+        if isinstance(target_index, Tensor):
+            self._index.copy_(target_index.reshape(1))
+        else:  # a fill, not a copy of host memory
+            self._index.fill_(int(target_index))
+        st = self.settings
+        self._set_key((self.sample_rate, self.volume_multiplier,
+                       tuple(getattr(st, f.name) for f in
+                             dataclasses.fields(st)
+                             if isinstance(getattr(st, f.name), bool)),
+                       tuple(id(t) for t in tensors_of(st)), io))
+        # The settings the key names, held so no new tensor takes the
+        # identity of one.
+        self._settings = st
+        return self._run(self._chain, _copy_out)
+
+    def _chain(self):
+        buffer, state, rt, local_dir, distance, reverb_ir = self._inputs
+        # The target's muffle picked on the device (a host index would
+        # be baked into the graph): the chain then reads target 0 of a
+        # one-target settings.
+        rt = dataclasses.replace(rt, muffle=rt.muffle.index_select(
+            0, self._index))
+        return spatialize(buffer, state, self._settings, rt, 0, local_dir,
+                          distance, self.sample_rate, self.volume_multiplier,
+                          reverb_ir, device=self.device)

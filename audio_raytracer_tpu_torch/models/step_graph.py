@@ -98,14 +98,18 @@ class StepGraph(GraphedCall):
     ``scene_of(params, scene)`` is the scene the step traces (the
     materials or the poses of ``params`` in ``scene``), ``leaves(params)``
     the trained tensors, and ``static`` the host values of the step
-    (``recover``, the number of listeners) that its key holds beside the
-    config. Counters and timings as ``GraphedCall``'s; ``loss`` is a copy
-    out of the graph's memory."""
+    (``recover``, the number of listeners; a mesh's shape and shard
+    indices) that its key holds beside the config. ``wrap(scene,
+    engine)``, when given, wraps the kernel engine built at each refill
+    (the sharded step's ``PrimShardedBackend``); the wrapper's
+    ``with_materials`` is called at every replay. Counters and timings as
+    ``GraphedCall``'s; ``loss`` is a copy out of the graph's memory."""
 
     def __init__(self, cfg: TraceConfig, body, scene_of, leaves,
-                 static=(), device="cuda"):
+                 static=(), device="cuda", wrap=None):
         self.cfg = cfg
         self._body, self._scene_of, self._leaves = body, scene_of, leaves
+        self._wrap = wrap
         self._static = (cfg, *static)
         self._params = self._opt = self._inputs = self._io = None
         self._held = ()
@@ -154,10 +158,10 @@ class StepGraph(GraphedCall):
                 tuple(tuple((k, _host(v)) for k, v in
                             opt.state.get(p, {}).items()) for p in params))
 
-    def _make_engine(self, scene: Scene) -> KernelBackend:
+    def _make_engine(self, scene: Scene):
         engine = KernelBackend(scene, differentiable=True)
         engine.build_tables(frame_skip_sets(scene.num_targets))
-        return engine
+        return engine if self._wrap is None else self._wrap(scene, engine)
 
     def _step(self) -> Tensor:
         engine = self._engine.with_materials(

@@ -11,6 +11,8 @@ of the two) finds on each shard.
 
 from __future__ import annotations
 
+import copy
+
 import torch
 
 from audio_raytracer_tpu_torch.ops import intersect
@@ -173,6 +175,16 @@ class PrimShardedBackend:
         """Delegated: the alive mask helps iff the local engine skips
         dead lanes."""
         return getattr(self.engine, "supports_block_skip", False)
+
+    def with_materials(self, scene: Scene) -> "PrimShardedBackend":
+        """This backend on ``scene``, a shard of the same geometry whose
+        materials may be trained tensors: the local engine's
+        ``with_materials`` (a ``KernelBackend``'s, which the sharded step
+        graph calls at every replay), the scan ranks kept."""
+        out = copy.copy(self)
+        out.scene = scene
+        out.engine = self.engine.with_materials(scene)
+        return out
 
     def _global_ranks(self, s: int) -> Tensor:
         """[P_local] int32 global scan rank of each local primitive."""

@@ -16,6 +16,15 @@ one-process run with ``num_accum_batches == ray_shards``), exactly the
 reference's per-thread-batch accumulator rows, so the shards must be
 contiguous ray ranges in rank order: ``parallel.distributed.
 local_ray_slice``.
+
+On a mesh of NCCL process groups on the card, with the kernel engine,
+the step is a ``ShardedFrameGraph``: the counterpart of the JAX
+package's ``jax.jit`` of the sharded step (parallel/sharded.py:220), one
+captured CUDA graph replayed from the second frame of a key on, its
+all-reduce among the captured launches (``graphed_mesh`` says when).
+Gloo copies through the host, which no capture can hold, so a gloo mesh,
+the CPU and the dense engine run the step eagerly, with one engine per
+local-scene object.
 """
 
 from __future__ import annotations
@@ -23,7 +32,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
+from audio_raytracer_tpu_torch.models.frame_graph import FrameGraph
 from audio_raytracer_tpu_torch.models.raytracer import make_backend
 from audio_raytracer_tpu_torch.ops import permeation as permeation_op
 from audio_raytracer_tpu_torch.ops import reverb as reverb_op
@@ -76,11 +87,64 @@ def shard_backend(scene_local: Scene, mesh: Mesh, engine):
                               mesh.prim_index, engine=engine)
 
 
+def graphed_mesh(mesh: Mesh, backend, graph: bool = True) -> bool:
+    """Does a sharded step on ``mesh`` run as one captured CUDA graph? With
+    the kernel engine, on a CUDA device, when the ``rays`` and ``prims``
+    groups are NCCL's, unless ``graph`` is False. Gloo copies a
+    collective through the host, which a capture cannot hold."""
+    return (graph and backend == "kernel" and mesh.device.type == "cuda"
+            and all(dist.get_backend(g) == "nccl"
+                    for g in (mesh.rays, mesh.prims)))
+
+
+class ShardedFrameGraph(FrameGraph):
+    """``step(origin, local_dirs, local_scene, reuse_scene=False)`` of
+    ``make_sharded_forward`` on this rank, replayed from one captured CUDA
+    graph from the second call of a key on, as ``FrameGraph`` replays
+    ``forward``: the origin, the ray shard and the local scene in static
+    buffers, a kernel engine with B1's and B2's tables built per local
+    scene outside the graph (``GraphedCall._refill``; over prim shards
+    wrapped in a ``PrimShardedBackend``), and ``frame`` (the sharded
+    step's body: trace, permeation, IR, the ray-axis all-reduce, the
+    reduce to settings) over them. The key is ``FrameGraph``'s with the
+    step's options, the mesh's shape and this rank's shard indices in
+    place of ``collect_debug``. Counters and timings as ``GraphedCall``'s.
+    """
+
+    def __init__(self, cfg: TraceConfig, mesh: Mesh, frame, options=()):
+        self.mesh = mesh
+        self._body = frame
+        super().__init__(cfg, device=mesh.device)
+        self._static = (cfg, *options, (mesh.ray_shards, mesh.prim_shards),
+                        (mesh.ray_index, mesh.prim_index))
+        self._local_rays = cfg.ray_count // mesh.ray_shards
+
+    def __call__(self, origin: Tensor, local_dirs: Tensor,
+                 local_scene: Scene, reuse_scene: bool = False):
+        _check_shard(local_dirs, self._local_rays)
+        return super().__call__(origin, local_dirs, local_scene,
+                                reuse_scene=reuse_scene)
+
+    def _make_engine(self, scene: Scene):
+        return shard_backend(scene, self.mesh,
+                             super()._make_engine(scene))
+
+    def _frame(self):
+        return self._body(self._origin, self._directions, self._scene,
+                          self._engine)
+
+
+def _check_shard(local_dirs: Tensor, local_rays: int) -> None:
+    if local_dirs.shape[0] != local_rays:
+        raise ValueError(f"{local_dirs.shape[0]} rays on this shard, "
+                         f"expected {local_rays}")
+
+
 def make_sharded_forward(cfg: TraceConfig, mesh: Mesh,
                          return_result: bool = False,
                          backend: str = "kernel",
                          elide_collectives: bool = False,
-                         return_ir: bool = False):
+                         return_ir: bool = False, graph: bool = True):
     """``step(origin, local_dirs, local_scene)`` on this rank of ``mesh``.
 
     ``local_dirs`` is this rank's ray shard ([ray_count / ray_shards, 3],
@@ -94,8 +158,17 @@ def make_sharded_forward(cfg: TraceConfig, mesh: Mesh,
     the IR summed over the ray shards ([0] when ``cfg.num_reverb_bins ==
     0``).
 
-    ``backend``: the local engine, "kernel" (B1-B3 on each rank) or
-    "dense".
+    ``backend``: the local engine, "kernel" (B1-B3 on each rank, in
+    ``cfg.compute_dtype``'s tier) or "dense".
+
+    ``graph``: where ``graphed_mesh`` allows (the kernel engine, the card,
+    NCCL groups), ``step`` is a ``ShardedFrameGraph``: the first call of
+    a key runs eagerly, later ones replay one captured CUDA graph, and
+    ``step(..., reuse_scene=True)`` skips the refill when the local scene
+    is the object of the call before. Elsewhere, or with ``graph=False``
+    (the baseline the graph is held against), the step runs eagerly and
+    builds one engine per local-scene object: a scene changed in place
+    must come as a new object.
 
     ``elide_collectives`` is a timing diagnostic only, as in the JAX
     package: the ray-axis sum is skipped, so every rank does the same
@@ -115,15 +188,7 @@ def make_sharded_forward(cfg: TraceConfig, mesh: Mesh,
     local_rays = cfg.ray_count // mesh.ray_shards
     rays = None if elide_collectives else mesh.rays
 
-    @torch.no_grad()
-    def step(origin: Tensor, local_dirs: Tensor, local_scene: Scene):
-        check_device(mesh.device, origin=origin, directions=local_dirs,
-                     scene=local_scene.target_positions)
-        if local_dirs.shape[0] != local_rays:
-            raise ValueError(f"{local_dirs.shape[0]} rays on this shard, "
-                             f"expected {local_rays}")
-        be = shard_backend(local_scene, mesh,
-                           make_local_engine(local_scene, backend))
+    def frame(origin, local_dirs, local_scene, be):
         result = trace_op.trace(origin, local_dirs, local_scene, local_cfg,
                                 backend=be)
         perm = permeation_op.permeation(origin, local_dirs, local_scene,
@@ -149,6 +214,23 @@ def make_sharded_forward(cfg: TraceConfig, mesh: Mesh,
         if return_ir:
             return settings, ir
         return settings
+
+    if graphed_mesh(mesh, backend, graph):
+        return ShardedFrameGraph(cfg, mesh, frame, (
+            return_result, return_ir, elide_collectives))
+
+    engine = [None, None]  # (local scene, its engine)
+
+    @torch.no_grad()
+    def step(origin: Tensor, local_dirs: Tensor, local_scene: Scene):
+        check_device(mesh.device, origin=origin, directions=local_dirs,
+                     scene=local_scene.target_positions)
+        _check_shard(local_dirs, local_rays)
+        if engine[0] is not local_scene:
+            engine[:] = local_scene, shard_backend(
+                local_scene, mesh, make_local_engine(
+                    local_scene, backend, cfg.compute_torch_dtype))
+        return frame(origin, local_dirs, local_scene, engine[1])
 
     return step
 

@@ -10,6 +10,13 @@ for its own materials; a SUM over the ``rays`` group then completes it
 (the all-reduce that JAX's ``shard_map`` transpose inserts for inputs
 replicated over 'rays'). The materials are not summed over ``prims``:
 each prim shard owns its slice.
+
+On a mesh that ``parallel/sharded.py::graphed_mesh`` allows (the kernel
+engine, the card, NCCL groups) the step is a ``StepGraph``
+(models/step_graph.py), the counterpart of the JAX package's
+``jax.jit`` of the sharded step (parallel/train.py:91): the whole step,
+its all-reduces included, one captured CUDA graph replayed from the
+second step of a key on.
 """
 
 from __future__ import annotations
@@ -24,9 +31,11 @@ from audio_raytracer_tpu_torch.models.differentiable import (
     adam,
     loudness_map,
 )
+from audio_raytracer_tpu_torch.models.step_graph import StepGraph
 from audio_raytracer_tpu_torch.parallel import comm
 from audio_raytracer_tpu_torch.parallel.mesh import Mesh, shard_rows
 from audio_raytracer_tpu_torch.parallel.sharded import (
+    graphed_mesh,
     make_local_engine,
     shard_backend,
 )
@@ -45,7 +54,7 @@ def shard_params(params: SceneParams, mesh: Mesh) -> SceneParams:
 
 
 def make_sharded_train_step(cfg: TraceConfig, mesh: Mesh, optimizer=None,
-                            backend: str = "kernel"):
+                            backend: str = "kernel", graph: bool = True):
     """Materials training on this rank of ``mesh``. Returns ``(step,
     init)``, as ``models.differentiable.make_train_step`` does:
     ``opt = init(params)`` marks this rank's 9 material tensors
@@ -56,20 +65,28 @@ def make_sharded_train_step(cfg: TraceConfig, mesh: Mesh, optimizer=None,
     ``scene_geom`` is this rank's scene shard (its materials are taken
     from ``params``), ``local_dirs`` its ray shard, ``target`` the
     replicated ``Loudness``. ``backend``: the local engine, "kernel" (B1-B3
-    forward and B4 backward on each rank) or "dense"."""
+    forward and B4 backward on each rank) or "dense".
+
+    ``graph``: where ``graphed_mesh`` allows, ``step`` is a ``StepGraph``
+    whose key also holds the mesh's shape and this rank's shard indices;
+    its engine is built per scene object and, over prim shards, wrapped
+    in a ``PrimShardedBackend``. ``graph=False`` gives the eager step,
+    the baseline the graph is held against."""
     make_opt = optimizer or adam()
 
     def init(params: SceneParams):
         return make_opt(_trainable(params.leaves()))
 
-    def step(params, opt, scene_geom, origin, local_dirs, target):
+    def body(params, opt, scene_geom, origin, local_dirs, target,
+             backend=backend):
         opt.zero_grad(set_to_none=False)
         scene_local = params.into_scene(scene_geom)
-        be = shard_backend(scene_local, mesh, make_local_engine(
-            scene_local, backend, differentiable=True))
+        if isinstance(backend, str):
+            backend = shard_backend(scene_local, mesh, make_local_engine(
+                scene_local, backend, differentiable=True))
         pred = loudness_map(origin, local_dirs, scene_local, cfg,
-                            backend=be, device=mesh.device, group=mesh.rays,
-                            total_ray_count=cfg.ray_count)
+                            backend=backend, device=mesh.device,
+                            group=mesh.rays, total_ray_count=cfg.ray_count)
         loss = _loudness_mse(pred, target)
         leaves = params.leaves()
         _backward(loss, leaves)
@@ -78,6 +95,18 @@ def make_sharded_train_step(cfg: TraceConfig, mesh: Mesh, optimizer=None,
                     [x.grad for x in leaves], mesh.rays)):
                 x.grad.copy_(g)
         opt.step()
-        return params, opt, loss.detach()
+        return loss.detach()
+
+    if graphed_mesh(mesh, backend, graph):
+        return StepGraph(
+            cfg, body, SceneParams.into_scene, SceneParams.leaves,
+            ("materials", (mesh.ray_shards, mesh.prim_shards),
+             (mesh.ray_index, mesh.prim_index)), device=mesh.device,
+            wrap=lambda scene, engine: shard_backend(scene, mesh,
+                                                     engine)), init
+
+    def step(params, opt, scene_geom, origin, local_dirs, target):
+        return params, opt, body(params, opt, scene_geom, origin,
+                                 local_dirs, target)
 
     return step, init

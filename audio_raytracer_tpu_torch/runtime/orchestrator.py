@@ -20,7 +20,11 @@ every device of its mesh from one process). Every rank builds the loop
 and calls ``tick`` in lockstep; rank 0 owns the registry and the
 listener's origin and decides each tick, over the mesh's ``world``
 group (``parallel/comm.py::broadcast``), whether the ranks harvest and
-dispatch, and sends the origin and every changed snapshot.
+dispatch, and sends the origin and every changed snapshot. On a mesh
+of NCCL groups with the kernel backend the rank's frame is the sharded
+step's ``ShardedFrameGraph`` (parallel/sharded.py), one replay a frame as
+on one card; the control record and the snapshot's broadcast stay
+outside it.
 """
 
 from __future__ import annotations
@@ -40,7 +44,10 @@ from audio_raytracer_tpu_torch.parallel.mesh import (
     pad_scene_for_prim_shards,
     shard_scene,
 )
-from audio_raytracer_tpu_torch.parallel.sharded import make_sharded_forward
+from audio_raytracer_tpu_torch.parallel.sharded import (
+    ShardedFrameGraph,
+    make_sharded_forward,
+)
 from audio_raytracer_tpu_torch.types import (
     Aabbs,
     Materials,
@@ -114,13 +121,16 @@ class AsyncRaytraceLoop:
     CPU), "dense" (plain [rays, prims] grids) or an engine object with
     the backend protocol, used as it is for every frame.
 
-    ``graph`` (one card, the kernel backend): each frame goes through the
-    loop's ``FrameGraph``, a captured CUDA graph replayed from the second
-    frame of a key on (a growing registry or a changed owner or activity
-    makes a new key; a moved primitive does not); ``graph_frames`` is
-    that object. On the CPU it runs the same frame on its static
-    buffers. ``graph=False`` enqueues every frame op by op, one engine
-    per snapshot: the eager baseline the graph is measured against.
+    ``graph`` (the kernel backend; on a mesh, NCCL groups on the card,
+    ``parallel/sharded.py::graphed_mesh``): each frame goes through the
+    loop's ``FrameGraph`` (on a mesh its ``ShardedFrameGraph``), a
+    captured CUDA graph replayed from the second frame of a key on (a
+    growing registry or a changed owner or activity makes a new key; a
+    moved primitive does not); ``graph_frames`` is that object. On the
+    CPU, without a mesh, it runs the same frame on its static buffers.
+    ``graph=False``, and a gloo mesh, enqueue every frame op by op, one
+    engine per snapshot: the eager baseline the graph is measured
+    against.
 
     ``device="cpu"`` runs every frame synchronously inside ``tick`` (a
     frame is always done when probed). The kernel engine runs in
@@ -161,7 +171,7 @@ class AsyncRaytraceLoop:
         self.registry = registry
         self.compute_async = compute_async
         self._backend = backend
-        self._use_graph = graph and mesh is None and backend == "kernel"
+        self._graph = graph
         self.device = mesh.device if mesh is not None \
             else resolve_device(device)
         self._cuda = self.device.type == "cuda"
@@ -194,7 +204,7 @@ class AsyncRaytraceLoop:
         if self.mesh is None:
             self.cfg, self._directions = cfg, directions
             self.graph_frames = FrameGraph(cfg, device=self.device) \
-                if self._use_graph else None
+                if self._graph and self._backend == "kernel" else None
             return
         shards = self.mesh.ray_shards
         if cfg.ray_count % shards:
@@ -204,7 +214,9 @@ class AsyncRaytraceLoop:
         # reference's per-thread-batch accumulator rows.
         self._step = make_sharded_forward(
             dataclasses.replace(cfg, num_accum_batches=shards), self.mesh,
-            backend=self._backend, return_ir=True)
+            backend=self._backend, return_ir=True, graph=self._graph)
+        self.graph_frames = self._step \
+            if isinstance(self._step, ShardedFrameGraph) else None
         self.cfg = cfg
         self._directions = directions[local_ray_slice(cfg.ray_count,
                                                       self.mesh)]
@@ -275,11 +287,15 @@ class AsyncRaytraceLoop:
 
     @torch.no_grad()
     def _frame(self, origin, scene):
+        # The registry hands back the same snapshot object until the
+        # scene changes (on a mesh, every rank keeps its shard until a
+        # changed snapshot arrives): only a new one is copied in.
+        if self.mesh is not None and self.graph_frames is not None:
+            return self.graph_frames(origin, self._directions, scene,
+                                     reuse_scene=True)
         if self.mesh is not None:
             return self._step(origin, self._directions, scene)
         if self.graph_frames is not None:
-            # The registry hands back the same snapshot object until the
-            # scene changes: only a new one is copied in.
             result, settings = self.graph_frames(origin, self._directions,
                                                  scene, reuse_scene=True)
             return settings, result.reverb_ir

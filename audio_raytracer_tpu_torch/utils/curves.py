@@ -37,7 +37,10 @@ class SampledCurve:
         frac = idx - lo
         lo = lo.long()
         hi = torch.ceil(idx).long()
-        return self.samples[lo] * (1.0 - frac) + self.samples[hi] * frac
+        # ``take``, not ``samples[lo]``: indexing by a 0-d tensor reads
+        # the index on the host, a sync that a captured graph refuses.
+        return (torch.take(self.samples, lo) * (1.0 - frac)
+                + torch.take(self.samples, hi) * frac)
 
     @staticmethod
     def linear(k: int = 50, value_multiplier: float = 1.0,
