@@ -58,6 +58,7 @@ from audio_raytracer_tpu_torch.types import (
     check_device,
     resolve_device,
 )
+from audio_raytracer_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -271,11 +272,13 @@ def _trainable(leaves):
 
 def _backward(loss: Tensor, leaves) -> None:
     """loss.backward(), then a zero gradient for every leaf it did not
-    reach, so Adam steps every tensor each step as optax does."""
-    loss.backward()
-    for x in leaves:
-        if x.grad is None:
-            x.grad = torch.zeros_like(x)
+    reach, so Adam steps every tensor each step as optax does; device
+    span ``step.backward``."""
+    with profiling.device_span("step.backward", loss.device):
+        loss.backward()
+        for x in leaves:
+            if x.grad is None:
+                x.grad = torch.zeros_like(x)
 
 
 def _graphed(dev, backend, graph) -> bool:
@@ -307,11 +310,13 @@ def make_train_step(cfg: TraceConfig, optimizer=None, backend="kernel",
 
     def body(params, opt, scene, origin, directions, target,
              backend=backend):
-        opt.zero_grad(set_to_none=False)
-        loss = loudness_loss(params, scene, origin, directions, cfg, target,
-                             backend=backend, device=dev)
+        with profiling.device_span("step.loss", dev):
+            opt.zero_grad(set_to_none=False)
+            loss = loudness_loss(params, scene, origin, directions, cfg,
+                                 target, backend=backend, device=dev)
         _backward(loss, params.leaves())
-        opt.step()
+        with profiling.device_span("step.adam", dev):
+            opt.step()
         return loss.detach()
 
     if _graphed(dev, backend, graph):
@@ -367,15 +372,17 @@ def make_pose_recovery_step(cfg: TraceConfig, optimizer=None,
         return make_opt(_trainable(pose.leaves()))
 
     def body(pose, opt, scene, directions, target, backend=backend):
-        opt.zero_grad(set_to_none=False)
-        loss = pose_loss(pose, scene, directions, cfg, target,
-                         backend=backend, device=dev)
+        with profiling.device_span("step.loss", dev):
+            opt.zero_grad(set_to_none=False)
+            loss = pose_loss(pose, scene, directions, cfg, target,
+                             backend=backend, device=dev)
         _backward(loss, pose.leaves())
-        for name, x in (("origin", pose.origin),
-                        ("targets", pose.target_positions)):
-            if name not in recover:
-                x.grad.zero_()
-        opt.step()
+        with profiling.device_span("step.adam", dev):
+            for name, x in (("origin", pose.origin),
+                            ("targets", pose.target_positions)):
+                if name not in recover:
+                    x.grad.zero_()
+            opt.step()
         return loss.detach()
 
     if _graphed(dev, backend, graph):
@@ -426,20 +433,22 @@ def make_source_recovery_step(cfg: TraceConfig, num_listeners: int,
 
     def body(target_positions, opt, scene, origins, directions, recordings,
              backend=backend):
-        opt.zero_grad(set_to_none=False)
-        scene_p = _sourced(target_positions, scene)
-        engine = make_backend(scene_p, backend, differentiable=True)
-        total = 0.0
-        for li in range(num_listeners):
-            rec = Loudness(*(None if getattr(recordings, f.name) is None
-                             else getattr(recordings, f.name)[li]
-                             for f in dataclasses.fields(Loudness)))
-            pred = loudness_map(origins[li], directions, scene_p, cfg,
-                                backend=engine, device=dev)
-            total = total + _loudness_mse(pred, rec)
-        loss = total / num_listeners
+        with profiling.device_span("step.loss", dev):
+            opt.zero_grad(set_to_none=False)
+            scene_p = _sourced(target_positions, scene)
+            engine = make_backend(scene_p, backend, differentiable=True)
+            total = 0.0
+            for li in range(num_listeners):
+                rec = Loudness(*(None if getattr(recordings, f.name) is None
+                                 else getattr(recordings, f.name)[li]
+                                 for f in dataclasses.fields(Loudness)))
+                pred = loudness_map(origins[li], directions, scene_p, cfg,
+                                    backend=engine, device=dev)
+                total = total + _loudness_mse(pred, rec)
+            loss = total / num_listeners
         _backward(loss, [target_positions])
-        opt.step()
+        with profiling.device_span("step.adam", dev):
+            opt.step()
         return loss.detach()
 
     if _graphed(dev, backend, graph):

@@ -67,6 +67,7 @@ from audio_raytracer_tpu_torch.types import (
     resolve_device,
     tensors_of,
 )
+from audio_raytracer_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -145,11 +146,13 @@ class CapturedCall:
     Counters: ``warmups``, ``captures`` and ``replays`` (calls run each
     way); host milliseconds of the latest ``capture_ms`` (capture, the
     first replay excluded) and ``replay_ms`` (graph launch and the
-    output's copy)."""
+    output's copy). The closure's device spans accumulate into the
+    call's own buffer, which its graph captures (``span_totals``)."""
 
     def __init__(self, device):
         self.device = resolve_device(device)
         self._capturing = self.device.type == "cuda"
+        self._spans = None
         self.key = None
         self.warmups = self.captures = self.replays = 0
         self.capture_ms = self.replay_ms = 0.0
@@ -164,9 +167,15 @@ class CapturedCall:
         self._captured = False
         self._warm = False
 
+    def _full_key(self, key):
+        """``key`` (a tuple) with the device spans' switch, which a
+        capture bakes in."""
+        return (*key, ("device_spans", profiling.device_spans_enabled()))
+
     def _set_key(self, key):
         """A new key drops the graph and its memory pool: the next call
         is its warm-up."""
+        key = self._full_key(key)
         if key != self.key:
             self._drop_graph()
             self.key = key
@@ -176,17 +185,38 @@ class CapturedCall:
         call of a key (the warm-up), captured on the second, replayed
         from then on."""
         if not self._warm:
-            out = copy_out(closure())
+            with profiling.span("warmup"):
+                out = self._call(closure)
+            with profiling.span("copy_out"):
+                out = copy_out(out)
             self._check_warmup()
             self._warm = True
             self.warmups += 1
             return out
         if not self._captured:
-            self._capture(closure)
+            with profiling.span("capture"):
+                self._capture(closure)
         t0 = time.perf_counter()
-        out = copy_out(self._replay(closure))
+        with profiling.span("replay"):
+            out = self._replay(closure)
+        with profiling.span("copy_out"):
+            out = copy_out(out)
         self.replay_ms = (time.perf_counter() - t0) * 1e3
         return out
+
+    def _call(self, closure):
+        """The closure, its device spans into the call's buffer (made on
+        the card at the first warm-up, before any capture)."""
+        if self._capturing and self._spans is None:
+            self._spans = profiling.span_buffer(self.device)
+        with profiling.spans_into(self._spans):
+            return closure()
+
+    def span_totals(self) -> dict[str, tuple[int, float]]:
+        """{span: (count, device ms)} of the device spans of every frame
+        or step this call has run on the card (warm-up and replays), in
+        one copy to the host; empty on the CPU."""
+        return profiling.totals(self._spans)
 
     def _check_warmup(self):
         """Raise if the warm-up left state a capture cannot make."""
@@ -202,7 +232,7 @@ class CapturedCall:
                 # from autograd's device thread onto the capturing stream.
                 with torch.cuda.graph(graph,
                                       capture_error_mode="thread_local"):
-                    self._out = closure()
+                    self._out = self._call(closure)
                 self._graph = graph
         finally:
             after = [getattr(w, a) for w, a in counters]
@@ -216,7 +246,7 @@ class CapturedCall:
 
     def _replay(self, closure):
         if not self._capturing:  # the CPU: the closure itself
-            self._out = closure()
+            self._out = self._call(closure)
         else:
             self._graph.replay()
             for (w, a), n in self._launches.items():
@@ -252,26 +282,31 @@ class GraphedCall(CapturedCall):
         into the static engine, tensor by tensor. New scene shapes
         replace the static scene, and new engine table shapes (or row
         counts) the static engine; either makes a new key."""
-        t0 = time.perf_counter()
-        shapes = tuple(_describe(t) for t in tensors_of(scene))
-        fresh = shapes != self._scene_shapes
-        if fresh:
-            self._scene = map_tensors(torch.clone, scene)
-            self._scene_shapes = shapes
-        else:
-            for mine, theirs in zip(tensors_of(self._scene),
-                                    tensors_of(scene)):
-                mine.copy_(theirs)
-        engine = self._make_engine(self._scene)
-        state = engine_state(engine)
-        engine_shapes = tuple((n, _describe(v)) for n, v in state.items())
-        if fresh or engine_shapes != self._engine_shapes:
-            self._engine, self._state = engine, state
-            self._engine_shapes = engine_shapes
-        else:
-            for n, t in state.items():
-                if isinstance(t, Tensor):
-                    self._state[n].copy_(t)
+        with profiling.span("refill"):
+            t0 = time.perf_counter()
+            with profiling.span("refill.scene_copy"):
+                shapes = tuple(_describe(t) for t in tensors_of(scene))
+                fresh = shapes != self._scene_shapes
+                if fresh:
+                    self._scene = map_tensors(torch.clone, scene)
+                    self._scene_shapes = shapes
+                else:
+                    for mine, theirs in zip(tensors_of(self._scene),
+                                            tensors_of(scene)):
+                        mine.copy_(theirs)
+            with profiling.span("refill.engine_build"):
+                engine = self._make_engine(self._scene)
+                state = engine_state(engine)
+            with profiling.span("refill.copy_in"):
+                engine_shapes = tuple((n, _describe(v))
+                                      for n, v in state.items())
+                if fresh or engine_shapes != self._engine_shapes:
+                    self._engine, self._state = engine, state
+                    self._engine_shapes = engine_shapes
+                else:
+                    for n, t in state.items():
+                        if isinstance(t, Tensor):
+                            self._state[n].copy_(t)
         self._source = scene
         self.refills += 1
         self.refill_ms = (time.perf_counter() - t0) * 1e3
@@ -305,21 +340,23 @@ class FrameGraph(GraphedCall):
     @torch.no_grad()
     def __call__(self, origin: Tensor, directions: Tensor, scene: Scene,
                  reuse_scene: bool = False):
-        check_device(self.device, origin=origin, directions=directions,
-                     scene=scene.target_positions)
-        io = tuple((tuple(x.shape), x.dtype) for x in (origin, directions))
-        if io != self._io:
-            self._origin, self._directions = (
-                x.clone(memory_format=torch.contiguous_format)
-                for x in (origin, directions))
-            self._io = io
-        if not (reuse_scene and scene is self._source):
-            self._refill(scene)
-        self._set_key((*self._static, (io, self._scene_shapes),
-                       self._engine_shapes))
-        self._origin.copy_(origin)
-        self._directions.copy_(directions)
-        return self._run(self._frame, _copy_out)
+        with profiling.span("frame.call"):
+            check_device(self.device, origin=origin, directions=directions,
+                         scene=scene.target_positions)
+            io = tuple((tuple(x.shape), x.dtype)
+                       for x in (origin, directions))
+            if io != self._io:
+                self._origin, self._directions = (
+                    x.clone(memory_format=torch.contiguous_format)
+                    for x in (origin, directions))
+                self._io = io
+            if not (reuse_scene and scene is self._source):
+                self._refill(scene)
+            self._set_key((*self._static, (io, self._scene_shapes),
+                           self._engine_shapes))
+            self._origin.copy_(origin)
+            self._directions.copy_(directions)
+            return self._run(self._frame, _copy_out)
 
     def _make_engine(self, scene: Scene) -> KernelBackend:
         engine = KernelBackend(scene,

@@ -33,6 +33,7 @@ from audio_raytracer_tpu_torch.types import (
     check_device,
     resolve_device,
 )
+from audio_raytracer_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -66,23 +67,30 @@ def forward(origin: Tensor, directions: Tensor, scene: Scene,
     "kernel" (the CUDA kernels; their plain versions on the CPU) or
     "dense" (plain [rays, prims] grids). Every input must lie on
     ``device``. The kernel engine runs in ``cfg.compute_dtype``'s tier.
+    The frame and its stages (trace, permeation, reverb, process) are
+    device spans (utils/profiling.py).
     """
     dev = resolve_device(device)
     check_device(dev, origin=origin, directions=directions,
                  scene=scene.target_positions)
-    be = make_backend(scene, backend, cfg.compute_torch_dtype)
-    if scene.num_primitives == 0:
-        be = None  # trace / permeation handle the empty scene
-    result = trace_op.trace(origin, directions, scene, cfg,
-                            collect_debug=collect_debug, backend=be)
-    perm = permeation_op.permeation(origin, directions, scene, cfg,
-                                    backend=be, first_t=result.first_hit_t)
-    result = dataclasses.replace(result, permeation=perm)
-    if cfg.num_reverb_bins > 0:
-        result = dataclasses.replace(
-            result, reverb_ir=reverb_op.impulse_response(
-                result.echo_distances, cfg))
-    settings = process_op.process(result, scene, cfg)
+    with profiling.device_span("frame", dev):
+        be = make_backend(scene, backend, cfg.compute_torch_dtype)
+        if scene.num_primitives == 0:
+            be = None  # trace / permeation handle the empty scene
+        with profiling.device_span("trace", dev):
+            result = trace_op.trace(origin, directions, scene, cfg,
+                                    collect_debug=collect_debug, backend=be)
+        with profiling.device_span("permeation", dev):
+            perm = permeation_op.permeation(origin, directions, scene, cfg,
+                                            backend=be,
+                                            first_t=result.first_hit_t)
+        result = dataclasses.replace(result, permeation=perm)
+        if cfg.num_reverb_bins > 0:
+            with profiling.device_span("reverb", dev):
+                ir = reverb_op.impulse_response(result.echo_distances, cfg)
+            result = dataclasses.replace(result, reverb_ir=ir)
+        with profiling.device_span("process", dev):
+            settings = process_op.process(result, scene, cfg)
     return result, settings
 
 

@@ -135,7 +135,7 @@ class StepGraph(GraphedCall):
         warm = self._warm
         loss = self._run(self._step, torch.clone)
         if not warm:  # the warm-up made the gradients and optimizer state
-            self.key = self._key()
+            self.key = self._full_key(self._key())
         return params, opt, loss
 
     def _key(self):

@@ -155,7 +155,10 @@ class KernelBackend:
         self.total = scene.num_primitives
         self.fields = prepare_fields(scene)
         if self.total:
-            uni = intersect.unified_arrays(scene)
+            # Its identity quaternion is a copy from host data: on the
+            # card a copy from pageable memory, which waits.
+            with K.host_wait():
+                uni = intersect.unified_arrays(scene)
             self._geom_tab, self._mat_tab = build_attr_tabs(uni, self.total)
 
     def build_tables(self, skip_sets) -> None:

@@ -33,7 +33,8 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 
 SOURCES = ("closest_hit", "multi_any_hit", "multi_chord",
-           "multi_chord_dens_bwd", "multi_chord_bwd", "any_hit", "calibrate")
+           "multi_chord_dens_bwd", "multi_chord_bwd", "any_hit", "calibrate",
+           "spans")
 HEADERS = ("fields.cuh", "chord.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -175,6 +176,7 @@ _SIGNATURES = {
         "any_hit_occupancy": [_P]},
     "calibrate": {"calibrate": [_P, _I, _P, _I, _I, _I, _P, _P],
                   "calibrate_bf16x2": [_P, _I, _P, _I, _I, _I, _P, _P]},
+    "spans": {"span_mark": [_I, _I, _P, _P], "span_count": [_P]},
 }
 
 

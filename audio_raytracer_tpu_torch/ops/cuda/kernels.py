@@ -32,6 +32,7 @@ rounded once (``bf16x2_table``).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 
@@ -40,6 +41,7 @@ import torch
 from audio_raytracer_tpu_torch.ops.backend import ray_chunks
 from audio_raytracer_tpu_torch.ops.cuda import build
 from audio_raytracer_tpu_torch.ops.intersect import _sqrt_disc
+from audio_raytracer_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 INF = float("inf")
@@ -143,6 +145,29 @@ def miss_row(width: int, device) -> Tensor:
     return row
 
 
+# The host waits of the frame path, beside the B1-B9 launch counts (each
+# ``host_wait``; counted on every device, on the card each one waits for
+# every kernel queued before it).
+host_syncs = 0
+
+
+@contextlib.contextmanager
+def host_wait():
+    """A block that waits for the device once: counted in
+    ``host_syncs``, inside an ``art.sync`` host span."""
+    global host_syncs
+    host_syncs += 1
+    with profiling.span("sync"):
+        yield
+
+
+def select_rows(tab: Tensor, mask: Tensor) -> Tensor:
+    """``tab[mask]``, a host wait: the row count comes from the
+    device."""
+    with host_wait():
+        return tab[mask]
+
+
 def pad_to_tiles(tab: Tensor) -> Tensor:
     """tab [n, W] followed by miss rows up to a multiple of TILE rows."""
     n, width = tab.shape
@@ -198,7 +223,8 @@ def occlusion_tables(fields: Fields, skips, compute_dtype=torch.float32):
             owned = torch.zeros_like(act)
             for k in key:
                 owned |= tid == k
-            free, mine = tab[act & ~owned], tab[act & owned]
+            free = select_rows(tab, act & ~owned)
+            mine = select_rows(tab, act & owned)
             out.append((torch.cat([pad_to_tiles(free), pad_to_tiles(mine)]),
                         free.shape[0], mine.shape[0]))
         return tuple(out)

@@ -38,6 +38,7 @@ import torch
 from audio_raytracer_tpu_torch.ops import intersect
 from audio_raytracer_tpu_torch.ops.backend import NO_SKIP, DenseBackend
 from audio_raytracer_tpu_torch.types import Scene, TraceConfig, TraceResult
+from audio_raytracer_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -181,12 +182,12 @@ def trace(origin: Tensor, directions: Tensor, scene: Scene,
     muffle_per_ray = torch.zeros((R, T), dtype=torch.int32, device=dev)
     muffle_acc = torch.zeros((B, T), dtype=torch.int32, device=dev)
 
-    for step in range(H):
+    for step in profiling.device_spans("trace.bounce", dev, range(H)):
         # Every ray starts alive, so bounce 0's partition would be the
         # identity: it is skipped.
         reorder = compact and step > 0
         if reorder:
-            with torch.profiler.record_function("trace.compact"):
+            with profiling.device_span("trace.compact", dev):
                 order, pos = alive_partition(alive,
                                              with_inverse=not unordered)
                 cols = (o, d, life, alive) + ((bids,) if carry_bids else ())
@@ -243,7 +244,7 @@ def trace(origin: Tensor, directions: Tensor, scene: Scene,
             if reorder:
                 # Outputs and the next bounce's rays back to the original
                 # order, in one packed row gather.
-                with torch.profiler.record_function("trace.restore"):
+                with profiling.device_span("trace.restore", dev):
                     rows = _pack_rows(t, echo_val, live_hit, p, muffle_inc,
                                       o, d, life, alive).index_select(0, pos)
                     t, echo_val = rows[:, 0], rows[:, 1]

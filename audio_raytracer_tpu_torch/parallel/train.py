@@ -40,6 +40,7 @@ from audio_raytracer_tpu_torch.parallel.sharded import (
     shard_backend,
 )
 from audio_raytracer_tpu_torch.types import Materials, TraceConfig
+from audio_raytracer_tpu_torch.utils import profiling
 
 
 def shard_params(params: SceneParams, mesh: Mesh) -> SceneParams:
@@ -79,22 +80,25 @@ def make_sharded_train_step(cfg: TraceConfig, mesh: Mesh, optimizer=None,
 
     def body(params, opt, scene_geom, origin, local_dirs, target,
              backend=backend):
-        opt.zero_grad(set_to_none=False)
-        scene_local = params.into_scene(scene_geom)
-        if isinstance(backend, str):
-            backend = shard_backend(scene_local, mesh, make_local_engine(
-                scene_local, backend, differentiable=True))
-        pred = loudness_map(origin, local_dirs, scene_local, cfg,
-                            backend=backend, device=mesh.device,
-                            group=mesh.rays, total_ray_count=cfg.ray_count)
-        loss = _loudness_mse(pred, target)
+        with profiling.device_span("step.loss", mesh.device):
+            opt.zero_grad(set_to_none=False)
+            scene_local = params.into_scene(scene_geom)
+            if isinstance(backend, str):
+                backend = shard_backend(scene_local, mesh, make_local_engine(
+                    scene_local, backend, differentiable=True))
+            pred = loudness_map(origin, local_dirs, scene_local, cfg,
+                                backend=backend, device=mesh.device,
+                                group=mesh.rays,
+                                total_ray_count=cfg.ray_count)
+            loss = _loudness_mse(pred, target)
         leaves = params.leaves()
         _backward(loss, leaves)
         with torch.no_grad():
             for x, g in zip(leaves, comm.all_reduce_sums(
                     [x.grad for x in leaves], mesh.rays)):
                 x.grad.copy_(g)
-        opt.step()
+        with profiling.device_span("step.adam", mesh.device):
+            opt.step()
         return loss.detach()
 
     if graphed_mesh(mesh, backend, graph):

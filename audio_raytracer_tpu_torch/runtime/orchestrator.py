@@ -59,6 +59,7 @@ from audio_raytracer_tpu_torch.types import (
     resolve_device,
     tensors_of,
 )
+from audio_raytracer_tpu_torch.utils import profiling
 
 # The control record rank 0 broadcasts each tick of a meshed loop:
 # [proceed, origin x, y, z, snapshot follows, spheres, AABBs, OBBs,
@@ -312,27 +313,36 @@ class AsyncRaytraceLoop:
     def tick(self, origin=None) -> TargetSettings | None:
         """One frame: harvest if complete, re-sync scene, dispatch next.
         ``origin``: the listener's position (rank 0's; None on the other
-        ranks of a mesh)."""
-        if self.mesh is not None:
-            return self._tick_meshed(origin)
+        ranks of a mesh). Host spans (utils/profiling.py): ``tick``, and
+        on one card ``harvest``, ``snapshot`` and ``dispatch`` in it."""
+        with profiling.span("tick"):
+            if self.mesh is not None:
+                return self._tick_meshed(origin)
+            return self._tick(origin)
+
+    def _tick(self, origin) -> TargetSettings | None:
         # 1. Harvest (the mainJobHandle.Complete() analog).
         if self._in_flight is not None:
             if self.compute_async and not self._done():
                 # Frame-skip: the frame is still running
                 # (AudioRayTracer.cs:95).
                 return self._latest
-            self._harvest()
+            with profiling.span("harvest"):
+                self._harvest()
 
         # 2. Publish scene mutations (UpdateJobBatch, cs:154-155).
         t0 = time.perf_counter()
-        scene = self.registry.snapshot(device=self.device)
+        with profiling.span("snapshot"):
+            scene = self.registry.snapshot(device=self.device)
         self.batch_cycle_ms = (time.perf_counter() - t0) * 1e3
 
         # 3. Dispatch (async on the card: the frame is enqueued on the
         # loop's stream and tick returns).
         if scene.num_targets > 0:
-            o = torch.as_tensor(origin, dtype=torch.float32).to(self.device)
-            self._dispatch(o, scene)
+            with profiling.span("dispatch"):
+                o = torch.as_tensor(origin,
+                                    dtype=torch.float32).to(self.device)
+                self._dispatch(o, scene)
             self.frames_dispatched += 1
         return self._latest
 

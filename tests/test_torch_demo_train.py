@@ -264,16 +264,6 @@ def test_sync_timer_and_meter():
     assert profiling.sync(tdiff.Loudness(torch.tensor([0.25, 1.0]),
                                          torch.zeros(2),
                                          torch.tensor(0.0))) == 0.25
-    results = {}
-    for _ in range(2):
-        with profiling.step_timer(results, "step"):
-            pass
-    assert results["step"] >= 0.0
-    meter = profiling.ThroughputMeter(window=2)
-    assert meter.rays_per_s == 0.0
-    for rays, s in ((100, 1.0), (300, 1.0), (500, 1.0)):
-        meter.record(rays, s)
-    assert meter.rays_per_s == 400.0  # the last two samples
 
 
 def test_device_trace_and_summary(tmp_path):
