@@ -58,6 +58,7 @@ from audio_raytracer_tpu_torch.ops.cuda.diff import (
     multi_chord_loss,
 )
 from audio_raytracer_tpu_torch.types import Scene
+from audio_raytracer_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -163,13 +164,20 @@ class KernelBackend:
 
     def build_tables(self, skip_sets) -> None:
         """Build now every table a frame's launches read in the engine's
-        tier: B1's, B2's for each tuple of skip targets in ``skip_sets``
-        and the rounded tables of the bfloat16 plain versions. Built
-        lazily inside a captured frame (models/frame_graph.py) they would
-        fail: their row selections wait for the device."""
+        tier: B1's (its tree where it walks one, ``K.takes_bvh``, built
+        inside an ``art.refill.bvh`` host span, else its tiles), B2's for
+        each tuple of skip targets in ``skip_sets`` and the rounded tables
+        of the bfloat16 plain versions. Built lazily inside a captured
+        frame (models/frame_graph.py) they would fail: B2's row selections
+        wait for the device, and a refill would leave the lazy ones
+        stale."""
         if not self.total:
             return
-        K.closest_tables(self.fields, self.compute_dtype)
+        if K.takes_bvh(self.fields, self.compute_dtype):
+            with profiling.span("refill.bvh"):
+                K.closest_bvh(self.fields)
+        else:
+            K.closest_tables(self.fields, self.compute_dtype)
         for skips in skip_sets:
             K.occlusion_tables(self.fields, skips, self.compute_dtype)
         self.fields.rounded(self.compute_dtype)

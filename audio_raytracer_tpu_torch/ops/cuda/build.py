@@ -139,7 +139,7 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _CLOSEST_HIT = [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P]
 _MULTI_ANY_HIT = [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P, _I,
                   _I, _P, _P]
@@ -147,12 +147,16 @@ _MULTI_CHORD = [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P]
 # The C entry points of each library and their argument types (B1-B3's
 # bfloat16 tier takes the float32 entry point's arguments, B1's and B2's
 # with the card's SM count before the stream; their occupancy reports
-# both tiers).
+# both tiers, B1's its tree kernel too).
 _SIGNATURES = {
     "closest_hit": {
         "closest_hit": _CLOSEST_HIT,
         "closest_hit_bf16": _CLOSEST_HIT[:-1] + [_I, _P],
-        "closest_hit_occupancy": [_P, _P],
+        "closest_hit_bvh": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I,
+                            _P, _I, _P, _P, _P, _P],
+        "bvh_boxes": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _F, _F, _P],
+        "bvh_tree": [_P, _P, _I, _I, _P, _P, _P, _P],
+        "closest_hit_occupancy": [_P, _P, _P],
         "rcp_mismatches": [_P, _P]},
     "multi_any_hit": {
         "multi_any_hit": _MULTI_ANY_HIT,

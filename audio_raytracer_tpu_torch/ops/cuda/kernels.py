@@ -356,6 +356,29 @@ def _sphere_t(sph, ox, oy, oz, dx, dy, dz, a2, a4):
     return t.masked_fill(~hit, INF)
 
 
+def closest_grid(fields: Fields, o: Tensor, d: Tensor,
+                 compute_dtype=torch.float32) -> Tensor:
+    """[R, P] B1's t of every (ray, primitive) in scan order (+inf on a
+    miss), in ``compute_dtype``'s tier; one [R, P] grid, so a caller
+    takes few rays at a time."""
+    geo = fields.rounded(compute_dtype)
+    o, d = o.to(compute_dtype), d.to(compute_dtype)
+    ox, oy, oz = ray_cols(o, slice(None))
+    dx, dy, dz = ray_cols(d, slice(None))
+    a = (dx * dx + dy * dy + dz * dz).float()
+    grids = []
+    if fields.counts[0]:
+        grids.append(_sphere_t(geo.sph, ox, oy, oz, dx, dy, dz, 2.0 * a,
+                               4.0 * a))
+    for kind, tab, miss in (("aabb", fields.aabb, A_MISS),
+                            ("obb", fields.obb, O_MISS)):
+        if tab.shape[0]:
+            terms = box_terms(geo, kind, ox, oy, oz)
+            inv = box_inv_dirs(geo, kind, dx, dy, dz)
+            grids.append(slab_hit(*slab(*terms, *inv)) + tab[:, miss])
+    return torch.cat(grids, dim=-1)
+
+
 def closest_hit_plain(fields: Fields, o: Tensor, d: Tensor,
                       alive: Tensor | None = None,
                       compute_dtype=torch.float32):
@@ -366,29 +389,173 @@ def closest_hit_plain(fields: Fields, o: Tensor, d: Tensor,
     rank_out = torch.full((R,), INT_MAX, dtype=torch.int32, device=o.device)
     if fields.total == 0:
         return t_out, rank_out
-    geo = fields.rounded(compute_dtype)
-    o, d = o.to(compute_dtype), d.to(compute_dtype)
     for c in ray_chunks(R, fields.total):
-        ox, oy, oz = ray_cols(o, c)
-        dx, dy, dz = ray_cols(d, c)
-        a = (dx * dx + dy * dy + dz * dz).float()
-        grids = []
-        if fields.counts[0]:
-            grids.append(_sphere_t(geo.sph, ox, oy, oz, dx, dy, dz,
-                                   2.0 * a, 4.0 * a))
-        for kind, tab, miss in (("aabb", fields.aabb, A_MISS),
-                                ("obb", fields.obb, O_MISS)):
-            if tab.shape[0]:
-                terms = box_terms(geo, kind, ox, oy, oz)
-                inv = box_inv_dirs(geo, kind, dx, dy, dz)
-                grids.append(slab_hit(*slab(*terms, *inv)) + tab[:, miss])
-        t, idx = torch.min(torch.cat(grids, dim=-1), dim=-1)
+        t, idx = torch.min(closest_grid(fields, o[c], d[c], compute_dtype),
+                           dim=-1)
         t_out[c] = t
         rank_out[c] = torch.where(t == INF, INT_MAX, idx.to(torch.int32))
     if alive is not None:
         t_out = t_out.masked_fill(~alive, INF)
         rank_out = rank_out.masked_fill(~alive, INT_MAX)
     return t_out, rank_out
+
+
+# ---------------------------------------------------------------------------
+# B1's bounding-volume hierarchy
+# ---------------------------------------------------------------------------
+
+# B1's float32 path walks a tree of the primitives (csrc/closest_hit.cu,
+# the tree kernel) where the three tables hold at least this many rows
+# together, and streams every row (the tiled kernel) below it: the
+# crossover measured on the card with the tree rebuilt every frame, as a
+# refill of a changed scene rebuilds it (PERF.md). The tree kernel alone
+# is the faster from 111 rows; what it costs below this count is its
+# build, about 0.2 ms of host and device time at every refill.
+BVH_MIN_ROWS = 1536
+
+# The widening of every node box a ray tests, as a share of the ray's
+# distance scale ``max |o| + S`` (``S`` the tree's largest coordinate):
+# where the rounding of a primitive's own test, of its box and of the node
+# test can place its hit outside the box (bounded in csrc/closest_hit.cu's
+# note). BVH_MARGIN covers spheres, AABBs and the node test; an OBB needs
+# BVH_MARGIN_OBB times kappa, its matrix's conditioning, which the tree
+# takes where that is larger.
+BVH_MARGIN = 2.0 ** -7
+BVH_MARGIN_OBB = 2.0 ** -12
+
+# Floats per tree record: the boxes (lo xyz, hi xyz) of a node's two
+# children; record 0, the header, holds the root's box, S, the margin w
+# and zeros.
+BVH_REC = 12
+
+
+def takes_bvh(fields: Fields, compute_dtype=torch.float32) -> bool:
+    """Does B1 walk the tree for these tables in this tier? A rule on the
+    row counts alone, so it waits for nothing."""
+    return compute_dtype == torch.float32 and fields.total >= BVH_MIN_ROWS
+
+
+def bvh_leaves(n: int) -> int:
+    """Leaves of the tree over n primitives, one a leaf: the least power
+    of two that holds them (1 for n = 0)."""
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _sum3(a: Tensor, b: Tensor) -> Tensor:
+    """sum_k a[..., k] * b[..., k], left to right (the kernel's order)."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2])
+
+
+def _empty_boxes(n: int, device) -> Tensor:
+    """[n, 6] empty boxes (lo = +inf, hi = -inf): never entered."""
+    return torch.cat([torch.full((n, 3), INF, device=device),
+                      torch.full((n, 3), -INF, device=device)], 1)
+
+
+def _cross(a: Tensor, b: Tensor) -> Tensor:
+    """a x b over the last axis, each term as the kernel rounds it."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+
+
+def bvh_boxes(fields: Fields):
+    """Plain version of the build's first kernel (csrc/closest_hit.cu::
+    bvh_boxes_kernel): (box [P, 6] (lo xyz, hi xyz) in scan order, codes
+    [P] int64, w []). An active primitive's box holds the primitive:
+    sphere centre ± sqrt(r2) rounded up; AABB its bounds, each axis
+    ordered as the slab orders it; OBB centre ± |M^-1| |h|, M the
+    world->local rows the table holds, M^-1 their adjugate over the
+    determinant. An inactive one's is empty (lo = +inf, hi = -inf); a NaN
+    bound becomes infinite. codes: the 30-bit Morton code of the box
+    centre over the bounds of the active finite centres, 2^30 for the
+    rest. w: ``BVH_MARGIN``, or ``BVH_MARGIN_OBB`` times kappa where that
+    is larger, kappa the active OBBs' largest ||M|| ||M^-1|| in max row
+    sums (3 for a rotation, infinite for a singular M)."""
+    sph, ab, ob = fields.sph, fields.aabb, fields.obb
+    r = torch.sqrt(sph[:, S_R2].clamp(min=0.0))[:, None]
+    r = torch.nextafter(r, torch.full_like(r, INF))
+    m = ob[:, O_M:O_M + 9].reshape(-1, 3, 3)
+    adj = torch.stack([_cross(m[:, 1], m[:, 2]), _cross(m[:, 2], m[:, 0]),
+                       _cross(m[:, 0], m[:, 1])], -1)
+    det = _sum3(m[:, 0], adj[:, :, 0]).abs()
+    h = ob[:, 3:6].abs()
+    ext = _sum3(adj.abs(), h[:, None, :]) / det[:, None]
+    lo = torch.cat([sph[:, 0:3] - r, torch.minimum(ab[:, 0:3], ab[:, 3:6]),
+                    ob[:, 0:3] - ext]).nan_to_num(-INF, INF, -INF)
+    hi = torch.cat([sph[:, 0:3] + r, torch.maximum(ab[:, 0:3], ab[:, 3:6]),
+                    ob[:, 0:3] + ext]).nan_to_num(INF, INF, -INF)
+    act = torch.cat([active_rows(t) for t in (sph, ab, ob)])[:, None]
+    box = torch.where(act, torch.cat([lo, hi], 1),
+                      _empty_boxes(1, sph.device))
+    # Morton codes of the centres over the active finite centres' bounds.
+    c = (box[:, :3] + box[:, 3:]) * 0.5
+    ok = act & torch.isfinite(c).all(-1, keepdim=True)
+    cmin = torch.where(ok, c, INF).amin(0)
+    cmax = torch.where(ok, c, -INF).amax(0)
+    q = ((c - cmin) / (cmax - cmin) * 1024.0).nan_to_num(0.0, 0.0, 0.0)
+    q = q.clamp(0.0, 1023.0).long()
+    for mul, mask in ((0x00010001, 0xFF0000FF), (0x00000101, 0x0F00F00F),
+                      (0x00000011, 0xC30C30C3), (0x00000005, 0x49249249)):
+        q = (q * mul) & mask
+    codes = torch.where(ok[:, 0], (q[:, 0] << 2) | (q[:, 1] << 1) | q[:, 2],
+                        1 << 30)
+    # w: the margin, or the OBBs' where that is larger.
+    w = torch.full((), BVH_MARGIN, device=sph.device)
+    if fields.counts[2]:
+        one = torch.ones((3,), device=sph.device)
+        kappa = (_sum3(m.abs(), one).amax(-1)
+                 * _sum3(adj.abs(), one).amax(-1) / det).nan_to_num(INF, INF)
+        kappa = torch.where(act[-len(m):, 0], kappa, 0.0).amax()
+        w = torch.maximum(w, kappa * BVH_MARGIN_OBB)
+    return box, codes, w
+
+
+def bvh_tree(box: Tensor, order: Tensor, w: Tensor):
+    """Plain version of the build's second kernel (csrc/closest_hit.cu::
+    bvh_tree_kernel): (records [L, BVH_REC], slots [L] int32) of the
+    complete binary tree over L = ``bvh_leaves(P)`` leaves in heap order
+    (node k's children 2k + 1 and 2k + 2; nodes L - 1 on are the leaves),
+    leaf i holding primitive ``order[i]`` (its scan rank in ``slots``;
+    past P an empty box and INT_MAX), each node's box the union of its
+    children's. Record k + 1 holds internal node k's two child boxes;
+    record 0 the root's box, S (its largest |coordinate|, 0 when it is
+    empty), ``w`` and zeros. Shapes depend on P alone."""
+    P, dev = box.shape[0], box.device
+    L = bvh_leaves(P)
+    level = torch.cat([box.index_select(0, order), _empty_boxes(L - P, dev)])
+    levels = [level]
+    while level.shape[0] > 1:
+        pair = level.view(-1, 2, 6)
+        level = torch.cat([torch.minimum(pair[:, 0, :3], pair[:, 1, :3]),
+                           torch.maximum(pair[:, 0, 3:], pair[:, 1, 3:])], 1)
+        levels.append(level)
+    root = level[0]
+    scale = torch.where((root[:3] <= root[3:]).all(), root.abs().amax(), 0.0)
+    header = torch.cat([root, scale[None], w[None], root.new_zeros(4)])
+    rec = torch.cat([header[None]]
+                    + [lv.view(-1, BVH_REC) for lv in levels[-2::-1]])
+    slots = torch.cat([order.to(torch.int32),
+                       torch.full((L - P,), INT_MAX, dtype=torch.int32,
+                                  device=dev)])
+    return rec, slots
+
+
+def closest_bvh(fields: Fields):
+    """B1's tree over every primitive, (records, slots, L): its boxes and
+    Morton codes (``bvh_boxes``), the codes' stable order, the tree
+    (``bvh_tree``); on the card two kernels around ``torch.sort``, with no
+    host wait. Cached on ``fields``."""
+
+    def make():
+        if on_cpu(fields.sph):
+            box, codes, w = bvh_boxes(fields)
+            order = torch.sort(codes, stable=True).indices
+            return (*bvh_tree(box, order, w), bvh_leaves(fields.total))
+        return _bvh_build(fields)
+
+    return fields.cached("bvh", make)
 
 
 # ---------------------------------------------------------------------------
@@ -447,6 +614,58 @@ def skips_arg(skips):
     return arr, ctypes.cast(arr, ctypes.c_void_p)
 
 
+def _closest_operands(o: Tensor, d: Tensor, alive: Tensor | None):
+    """B1's library, rays and alive mask checked, and its empty outputs
+    (t [R], rank [R] int32)."""
+    lib = build.load("closest_hit")
+    dev = o.device
+    check_operands(dev, o, d)
+    if alive is not None:
+        check_operands(dev, alive, dtypes=(torch.bool,))
+    R = o.shape[0]
+    return lib, torch.empty((R,), device=dev), \
+        torch.empty((R,), dtype=torch.int32, device=dev)
+
+
+def _bvh_build(fields: Fields):
+    """``closest_bvh`` on the card: csrc/closest_hit.cu's bvh_boxes and
+    bvh_tree kernels around ``torch.sort``, counted in
+    ``closest_bvh.launches`` (two a build)."""
+    lib, dev = build.load("closest_hit"), fields.sph.device
+    P, L = fields.total, bvh_leaves(fields.total)
+    box = torch.empty((P, 6), device=dev)
+    codes = torch.empty((P,), dtype=torch.int64, device=dev)
+    w = torch.empty((1,), device=dev)
+    build.check("bvh_boxes", lib.bvh_boxes(
+        *table_args(fields, dev), box.data_ptr(), codes.data_ptr(),
+        w.data_ptr(), BVH_MARGIN, BVH_MARGIN_OBB, stream_of(dev)))
+    order = torch.sort(codes, stable=True).indices
+    rec = torch.empty((L, BVH_REC), device=dev)
+    slots = torch.empty((L,), dtype=torch.int32, device=dev)
+    build.check("bvh_tree", lib.bvh_tree(
+        box.data_ptr(), order.data_ptr(), P, L, w.data_ptr(), rec.data_ptr(),
+        slots.data_ptr(), stream_of(dev)))
+    closest_bvh.launches += 2
+    return rec, slots, L
+
+
+closest_bvh.launches = 0
+
+
+def _launch_bvh(lib, fields, o, d, alive, t, rank, visits) -> None:
+    rec, slots, leaves = closest_bvh(fields)
+    dev = o.device
+    err = lib.closest_hit_bvh(o.data_ptr(), d.data_ptr(),
+                              None if alive is None else alive.data_ptr(),
+                              o.shape[0], table_ptr(rec, dev),
+                              slots.data_ptr(), leaves,
+                              *table_args(fields, dev), t.data_ptr(),
+                              rank.data_ptr(),
+                              None if visits is None else visits.data_ptr(),
+                              stream_of(dev))
+    build.check("closest_hit_bvh", err)
+
+
 def run_closest_hit(fields: Fields, o: Tensor, d: Tensor,
                     alive: Tensor | None = None,
                     compute_dtype=torch.float32):
@@ -454,18 +673,44 @@ def run_closest_hit(fields: Fields, o: Tensor, d: Tensor,
     rank [R] int32 in [sphere, aabb, obb] order, INT_MAX on a miss).
     ``alive`` [R] bool: dead lanes skip the scan and report a miss.
     ``compute_dtype``: torch.float32, or torch.bfloat16 for the bfloat16
-    tier (its launches counted in ``launches_bf16``)."""
-    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
+    tier (its launches counted in ``launches_bf16``). In float32 at
+    ``BVH_MIN_ROWS`` rows or more the kernel walks the tree of
+    ``closest_bvh`` (``_run_tree``), else it streams every row
+    (``_run_tiled``): the same bits."""
+    check_compute_dtype(compute_dtype)
     if on_cpu(o):
         return closest_hit_plain(fields, o, d, alive, compute_dtype)
-    lib = build.load("closest_hit")
-    dev = o.device
-    check_operands(dev, o, d)
-    if alive is not None:
-        check_operands(dev, alive, dtypes=(torch.bool,))
-    R = o.shape[0]
-    t = torch.empty((R,), device=dev)
-    rank = torch.empty((R,), dtype=torch.int32, device=dev)
+    if takes_bvh(fields, compute_dtype):
+        return _run_tree(fields, o, d, alive)
+    return _run_tiled(fields, o, d, alive, compute_dtype)
+
+
+run_closest_hit.launches = 0
+run_closest_hit.launches_bf16 = 0
+run_closest_hit.launches_bvh = 0
+
+
+def _run_tree(fields: Fields, o: Tensor, d: Tensor,
+              alive: Tensor | None = None):
+    """B1's tree kernel on the card, whatever the row count; counted in
+    ``run_closest_hit.launches`` and ``.launches_bvh``."""
+    lib, t, rank = _closest_operands(o, d, alive)
+    _launch_bvh(lib, fields, o, d, alive, t, rank, None)
+    if o.shape[0]:
+        run_closest_hit.launches += 1
+        run_closest_hit.launches_bvh += 1
+    return t, rank
+
+
+def _run_tiled(fields: Fields, o: Tensor, d: Tensor,
+               alive: Tensor | None = None, compute_dtype=torch.float32):
+    """B1's tiled kernel on the card, whatever the row count: every row
+    streamed through the block (the tree kernel's yardstick, and the
+    bfloat16 tier's pair kernel); counted in ``run_closest_hit.launches``
+    or ``.launches_bf16``."""
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
+    lib, t, rank = _closest_operands(o, d, alive)
+    R, dev = o.shape[0], o.device
     args = []  # the padded tables with the real counts, for the ranks
     for tab, n in zip(closest_tables(fields, compute_dtype), fields.counts):
         args += [table_ptr(tab, dev), n]
@@ -481,8 +726,18 @@ def run_closest_hit(fields: Fields, o: Tensor, d: Tensor,
     return t, rank
 
 
-run_closest_hit.launches = 0
-run_closest_hit.launches_bf16 = 0
+def closest_hit_bvh_visits(fields: Fields, o: Tensor, d: Tensor,
+                           alive: Tensor | None = None):
+    """The tree kernel's diagnostic, on the card only, whatever the row
+    count, and never on the frame path: (t, rank) as ``run_closest_hit``
+    and visits [R, 2] int32, the nodes each ray entered (leaves included)
+    and the primitives it tested. Counted in no launch count."""
+    if on_cpu(o):
+        raise ValueError("the tree kernel's diagnostic runs on the card")
+    lib, t, rank = _closest_operands(o, d, alive)
+    visits = torch.empty((o.shape[0], 2), dtype=torch.int32, device=o.device)
+    _launch_bvh(lib, fields, o, d, alive, t, rank, visits)
+    return t, rank, visits
 
 
 # ---------------------------------------------------------------------------

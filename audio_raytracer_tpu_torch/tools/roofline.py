@@ -351,7 +351,10 @@ def standalone_inputs(dirs, dev):
 
 def standalone(scene, dirs, ceil, device="cuda", reps=5, log=print) -> dict:
     """{kernel: (median ms, counted ops)} of B1-B8 at the JAX tool's
-    shapes, each rate printed against the ceiling."""
+    shapes, each rate printed against the ceiling. B1's count is of every
+    row, the tiled kernel's work: B1 runs it there, and the tree kernel,
+    where ``run_closest_hit`` takes it, is timed beside it with no count
+    (ops None)."""
     from audio_raytracer_tpu_torch.ops.cuda.backend import prepare_fields
 
     fields = prepare_fields(scene)
@@ -362,8 +365,9 @@ def standalone(scene, dirs, ceil, device="cuda", reps=5, log=print) -> dict:
     g1 = gbar[:, 0].contiguous()
     skips4 = (0, 1, 2, 3)
     cases = (
-        ("B1 closest", lambda: K.run_closest_hit(fields, o, dirs),
+        ("B1 closest (tiled)", lambda: K._run_tiled(fields, o, dirs),
          closest_ops(fields, n)),
+        ("B1 closest (tree)", lambda: K._run_tree(fields, o, dirs), None),
         ("B2 occl S=5", lambda: F.run_multi_any_hit(
             fields, o, dirs5, limits, (NO_SKIP,) + skips4, init),
          pair_ops(fields, n, 5, F.OCC_OPS)),
@@ -386,9 +390,14 @@ def standalone(scene, dirs, ceil, device="cuda", reps=5, log=print) -> dict:
     )
     out = {}
     for name, fn, ops in cases:
+        if ops is None and not K.takes_bvh(fields):
+            continue
         ms = cuda_ms(fn, reps)
-        rate = ops / (ms * 1e-3)
         out[name] = (ms, ops)
+        if ops is None:
+            log(f"{name}: {ms:.4f} ms, no count of its work")
+            continue
+        rate = ops / (ms * 1e-3)
         log(f"{name}: {ms:.4f} ms, {ops / 1e12:.4f}e12 counted ops, "
             f"{rate / 1e12:.3f} T ops/s = {rate / ceil:.1%} of the ceiling")
     return out
@@ -435,7 +444,7 @@ TYPES = ("sphere", "aabb", "obb")
 
 # The kernels part 5 reads: (library, SASS name pattern of the instance).
 LOOP_KERNELS = {
-    "B1": ("closest_hit", r"^_Z\d+closest_hit_kernel"),
+    "B1": ("closest_hit", r"^_Z\d+closest_hit_kernelP"),
     "B2": ("multi_any_hit", r"multi_any_hit_kernelILi5E"),
     "B4": ("multi_chord_dens_bwd", r"multi_chord_dens_bwd_kernelILi4E"),
     "B6": ("any_hit", r"^_Z\d+any_hit_kernel"),
@@ -469,17 +478,18 @@ def loop_histograms(kernels=tuple(LOOP_KERNELS), log=print) -> dict:
 
 
 def occupancy(sets=(5,)) -> dict:
-    """Resident blocks per SM of B1, B1-bf16, B6, and of B2, B2-bf16 and
-    B4 at each S in ``sets``."""
+    """Resident blocks per SM of B1, B1-bf16, B1-bvh (its tree kernel) and
+    B6, and of B2, B2-bf16 and B4 at each S in ``sets``."""
     import ctypes
 
     from audio_raytracer_tpu_torch.ops.cuda import build
 
-    n, n_bf16 = ctypes.c_int(0), ctypes.c_int(0)
+    n, n_bf16, n_bvh = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     out = {}
     build.check("occupancy", build.load("closest_hit").closest_hit_occupancy(
-        ctypes.byref(n), ctypes.byref(n_bf16)))
-    out["B1"], out["B1-bf16"] = n.value, n_bf16.value
+        ctypes.byref(n), ctypes.byref(n_bf16), ctypes.byref(n_bvh)))
+    out["B1"], out["B1-bf16"], out["B1-bvh"] = n.value, n_bf16.value, \
+        n_bvh.value
     build.check("occupancy", build.load("any_hit").any_hit_occupancy(
         ctypes.byref(n)))
     out["B6"] = n.value
@@ -521,13 +531,14 @@ def type_ablation(fields: K.Fields, b1_args, b2_args, ceil, reps=5,
                   log=print) -> dict:
     """B1 (o, d, alive) and B2 (o, dirs, limits, skips, init) on each
     type's table alone: {"B1": {type: dict(ms, bound_ms)}, "B2": ...},
-    the bounds against the ceiling ``ceil``."""
+    the bounds against the ceiling ``ceil``. B1 runs its tiled kernel,
+    whose work the count of every row is, whatever the row count."""
     o, d, alive = b1_args
     o2, dirs, limits, skips, init = b2_args
     live1 = int(alive.sum())
     live2, open2 = int((~init.all(dim=1)).sum()), int((~init).sum())
     return {
-        "B1": by_type(fields, lambda f: K.run_closest_hit(f, o, d, alive),
+        "B1": by_type(fields, lambda f: K._run_tiled(f, o, d, alive),
                       lambda f: closest_ops(f, live1), ceil, reps, "B1",
                       log),
         "B2": by_type(fields, lambda f: F.run_multi_any_hit(
