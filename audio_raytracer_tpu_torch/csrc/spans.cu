@@ -21,7 +21,7 @@
 #define ART_SPANS(X)                                                     \
   X(frame) X(trace) X(trace_bounce) X(trace_compact) X(trace_restore)  \
   X(permeation) X(reverb) X(process) X(step_loss) X(step_backward)     \
-  X(step_adam)
+  X(step_adam) X(map_permeation)
 
 typedef unsigned long long u64;
 

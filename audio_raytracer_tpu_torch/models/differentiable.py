@@ -56,6 +56,7 @@ from audio_raytracer_tpu_torch.types import (
     Scene,
     TraceConfig,
     check_device,
+    map_tensors,
     resolve_device,
 )
 from audio_raytracer_tpu_torch.utils import profiling
@@ -149,7 +150,11 @@ def loudness_map(origin: Tensor, directions: Tensor, scene: Scene,
     For one ray shard of a mesh: ``group`` is the process group of the
     ray shards, over which the partial sums are summed (the result is the
     same on every rank), and ``total_ray_count`` the rays of all of
-    them."""
+    them.
+
+    Device span ``map.permeation`` (inside a training step's
+    ``step.loss``): the first hits' offset points, B3 and the masked
+    sums."""
     dev = resolve_device(device)
     check_device(dev, origin=origin, directions=directions,
                  scene=scene.target_positions)
@@ -207,26 +212,33 @@ def loudness_map(origin: Tensor, directions: Tensor, scene: Scene,
         d = torch.where(cc, d_new, d)
         life = torch.where(can_continue, life_new, life)
 
-    # Permeation from the bounce-0 hit (the winner recompute gives it
-    # pose gradients), per-ray mean: no overwrite quirk here.
-    hit_first = torch.isfinite(t_first)
-    t_sf = torch.where(hit_first, t_first, 0.0)
-    off = (o0 + directions * t_sf[..., None]) - directions * eps
-    if T > 0:
-        dirs = []
-        for ti in range(T):
-            to_t = scene.target_positions[ti] - off
-            dirs.append(to_t / intersect.safe_norm(to_t)[..., None])
-        losses = engine.multi_permeation_loss(off, dirs, tuple(range(T)))
-        vals = cfg.permeation_strength_per_ray - losses / R_total
-        perm_sum = torch.where(hit_first[..., None], vals, 0.0).sum(dim=0)
-    else:
-        perm_sum = directions.new_zeros((0,))
+    with profiling.device_span("map.permeation", dev):
+        # Permeation from the bounce-0 hit (the winner recompute gives it
+        # pose gradients), per-ray mean: no overwrite quirk here. The
+        # first hits and their chord term are summed apart: a float32 sum
+        # of strength - chord / R a ray would round the small chord term
+        # at the scale of the strength's.
+        hit_first = torch.isfinite(t_first)
+        t_sf = torch.where(hit_first, t_first, 0.0)
+        off = (o0 + directions * t_sf[..., None]) - directions * eps
+        if T > 0:
+            dirs = []
+            for ti in range(T):
+                to_t = scene.target_positions[ti] - off
+                dirs.append(to_t / intersect.safe_norm(to_t)[..., None])
+            losses = engine.multi_permeation_loss(off, dirs, tuple(range(T)))
+            chord_sum = torch.where(hit_first[..., None], losses,
+                                    0.0).sum(dim=0)
+        else:
+            chord_sum = directions.new_zeros((0,))
+        first_sum = hit_first.sum().to(directions.dtype)
 
     echo_v, echo_w = torch.stack(echo_v), torch.stack(echo_w)  # [H, R]
-    muffle_sum, echo_sum, perm_sum = comm.all_reduce_sums(
+    muffle_sum, echo_sum, first_sum, chord_sum = comm.all_reduce_sums(
         [torch.stack(muffle_c).sum(dim=(0, 1)),  # [T]
-         torch.sum(echo_v * echo_w), perm_sum], group)
+         torch.sum(echo_v * echo_w), first_sum, chord_sum], group)
+    perm_sum = (first_sum * cfg.permeation_strength_per_ray
+                - chord_sum / R_total)
     reverb_ir = None
     if cfg.num_reverb_bins > 0:
         # Energy-weighted IR, normalized per ray (invariant to the ray
@@ -289,13 +301,17 @@ def _graphed(dev, backend, graph) -> bool:
 
 
 def make_train_step(cfg: TraceConfig, optimizer=None, backend="kernel",
-                    device="cuda", graph: bool = True):
+                    device="cuda", graph: bool = True,
+                    return_map: bool = False):
     """Materials training. Returns ``(step, init)``:
     ``opt = init(params)`` marks the 9 material tensors trainable and
     builds the optimizer over them (``optimizer``: a factory taking the
     tensors, default ``adam(1e-2)``); ``step(params, opt, scene, origin,
     directions, target) -> (params, opt, loss)`` takes one step, updating
-    the tensors in place. The kernel backend's chord adjoint is B4.
+    the tensors in place. The kernel backend's chord adjoint is B4. With
+    ``return_map`` the step returns ``(params, opt, loss, pred)``,
+    ``pred`` the step's own loudness map (the ``Loudness`` at the
+    materials the step started from) that the loss was taken of.
 
     With the kernel backend on the card ``step`` is a ``StepGraph``
     (models/step_graph.py): its first call of a key runs eagerly, later
@@ -312,23 +328,27 @@ def make_train_step(cfg: TraceConfig, optimizer=None, backend="kernel",
              backend=backend):
         with profiling.device_span("step.loss", dev):
             opt.zero_grad(set_to_none=False)
-            loss = loudness_loss(params, scene, origin, directions, cfg,
-                                 target, backend=backend, device=dev)
+            pred = loudness_map(origin, directions,
+                                params.into_scene(scene), cfg,
+                                backend=backend, device=dev)
+            loss = _loudness_mse(pred, target)
         _backward(loss, params.leaves())
         with profiling.device_span("step.adam", dev):
             opt.step()
+        if return_map:
+            return loss.detach(), map_tensors(Tensor.detach, pred)
         return loss.detach()
 
     if _graphed(dev, backend, graph):
         from audio_raytracer_tpu_torch.models.step_graph import StepGraph
 
         return StepGraph(cfg, body, SceneParams.into_scene,
-                         SceneParams.leaves, ("materials",),
+                         SceneParams.leaves, ("materials", return_map),
                          device=dev), init
 
     def step(params, opt, scene, origin, directions, target):
-        return params, opt, body(params, opt, scene, origin, directions,
-                                 target)
+        out = body(params, opt, scene, origin, directions, target)
+        return (params, opt, *out) if return_map else (params, opt, out)
 
     return step, init
 

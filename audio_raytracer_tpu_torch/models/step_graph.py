@@ -30,7 +30,8 @@ the engine's tables and its winner-materials table
 selections) is made once per scene, outside it: a call with another scene
 object than the call before copies it into the static scene and the
 engine built from it into the static engine (``GraphedCall._refill``). The
-loss is copied out of the graph's memory after every step.
+loss (and the loudness map, where the body returns it) is copied out of
+the graph's memory after every step.
 
 The key holds the config, ``recover`` and the number of listeners, the
 shapes of the inputs and of the parameters, the static scene's and
@@ -60,6 +61,7 @@ import torch
 
 from audio_raytracer_tpu_torch.models.frame_graph import (
     GraphedCall,
+    _copy_out,
     _describe,
     frame_skip_sets,
 )
@@ -103,7 +105,9 @@ class StepGraph(GraphedCall):
     engine)``, when given, wraps the kernel engine built at each refill
     (the sharded step's ``PrimShardedBackend``); the wrapper's
     ``with_materials`` is called at every replay. Counters and timings as
-    ``GraphedCall``'s; ``loss`` is a copy out of the graph's memory."""
+    ``GraphedCall``'s; ``loss`` is a copy out of the graph's memory. A
+    body that returns ``(loss, map)`` makes the call return ``(params,
+    opt, loss, map)``, both copied out."""
 
     def __init__(self, cfg: TraceConfig, body, scene_of, leaves,
                  static=(), device="cuda", wrap=None):
@@ -133,10 +137,11 @@ class StepGraph(GraphedCall):
         self._params, self._opt = params, opt
         self._set_key(self._key())
         warm = self._warm
-        loss = self._run(self._step, torch.clone)
+        out = self._run(self._step, _copy_out)
         if not warm:  # the warm-up made the gradients and optimizer state
             self.key = self._full_key(self._key())
-        return params, opt, loss
+        return (params, opt, *out) if isinstance(out, tuple) else (
+            params, opt, out)
 
     def _key(self):
         """The key of this call's parameters and optimizer (see the

@@ -49,7 +49,7 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # The device spans, in the order of csrc/spans.cu's ART_SPANS.
 SPANS = ("frame", "trace", "trace.bounce", "trace.compact", "trace.restore",
          "permeation", "reverb", "process", "step.loss", "step.backward",
-         "step.adam")
+         "step.adam", "map.permeation")
 HOST_PREFIX = "art."
 MARKER_PREFIX = "art_span_"
 # int64 words per span in a span buffer: the begin marker's stamp, the
