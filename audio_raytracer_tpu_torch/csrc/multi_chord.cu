@@ -23,7 +23,36 @@
 // S compile-time sets in registers, primitive rows staged per block in
 // TILE-row tiles of shared memory; box tests share the per-primitive
 // (bound - origin) terms across sets. Each ray sums in scan order. The
-// training step's 1,048,576 rays take it.
+// training step's 1,048,576 rays take it below the tree path's rule.
+//
+// Many rays over many rows, float32: the tree path, multi_chord_kernel<S,
+// COUNT>, where ops/cuda/fused.py::takes_chord_bvh holds (B1's tree rule,
+// ops/cuda/kernels.py::takes_bvh, and at least CHORD_BVH_MIN_RAYS rays).
+// An unbounded ray through a scene of thousands of rows crosses a few of
+// them, so nearly all of the tiled kernel's (ray, primitive, set) terms
+// are zeros added to a sum. Here one thread per (ray, set) walks B1's tree
+// (closest_hit.cu; bvh.cuh), rebuilt on the card at every refill, and
+// tests only the rows of the leaves it enters, by the row functions
+// below, so each term has the tiled kernel's bits. No node is culled by t:
+// a node is entered wherever the ray meets its widened box at t >= 0, and
+// the margin that makes B1's boxes hold every hit it can compute
+// (closest_hit.cu, "Conservative boxes") holds every chord B3 can compute:
+// the boxes' slabs are B1's arithmetic, and the sphere's half-b quadratic
+// at |d| = 1 rounds fewer times than B1's full one (the CPU tests check
+// every crossing's chain of nodes, tests/test_torch_chord_bvh.py). The
+// tiled kernel adds every row's term in scan order, and adding +0 or -0
+// leaves a sum's bits as they are (a sum that starts at +0 never reaches
+// -0), so the tree path adds the nonzero terms in ascending rank: a
+// (ray, set) keeps its crossings in a short rank-sorted list in registers
+// and walks again for the ranks above the list where it overflowed. Same
+// bits as the tiled kernel at (BLOCK, 1), on every ray and set of finite
+// densities (a non-finite density makes every tiled sum that scans its
+// row non-finite, crossed or not). What bounds it is each step's
+// dependent 48-byte node read and the divergence of a warp's walks, as
+// for B1's tree: in the rays' own order a warp's 32 first-hit points lie
+// all around the scene (consecutive Fibonacci rays), so the kernel takes
+// the rays in the Morton order of their origins (one torch.sort a call),
+// which cut its time 3.5x at the materials step's shape (PERF.md).
 //
 // Few rays: multi_chord_split_kernel. At one ray (the forward frame's
 // permeation batch) the kernel above runs one thread on one SM and walks
@@ -47,7 +76,7 @@
 
 #include <cooperative_groups.h>
 
-#include "fields.cuh"
+#include "bvh.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -214,6 +243,174 @@ multi_chord_kernel(const float* __restrict__ o, const float* __restrict__ dirs,
   if (live) {
 #pragma unroll
     for (int s = 0; s < S; ++s) out[(size_t)r * S + s] = acc[s];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The tree path: B1's bounding-volume hierarchy, unbounded rays
+// ---------------------------------------------------------------------------
+
+// Threads a block of the tree kernel.
+#define CHORD_BVH_BLOCK 128
+// Crossings a (ray, set) holds in rank order through one walk.
+#define CHORD_LIST 16
+
+// The W floats of a table row from device memory (16-byte aligned rows).
+template <int W>
+__device__ __forceinline__ void load_row(const float* src, float (&p)[W]) {
+#pragma unroll
+  for (int v = 0; v < W / 4; ++v) {
+    const float4 x = ldg4(src + 4 * v);
+    p[4 * v] = x.x; p[4 * v + 1] = x.y;
+    p[4 * v + 2] = x.z; p[4 * v + 3] = x.w;
+  }
+}
+
+// The term (chord x density) of scan rank `rank` for the one set of q, by
+// the tiled kernel's row functions: +0 plus that kernel's term, the same
+// bits once added to a sum that is not -0. A rank past the tables is 0.
+__device__ __forceinline__ float rank_term(const Bvh& b, int rank,
+                                           const RaySets<1, F32>& q) {
+  float acc[1] = {0.0f};
+  if (rank < b.ns) {
+    float p[SPH_W];
+    load_row(b.sph + (size_t)rank * SPH_W, p);
+    sphere_row<1, F32>(p, q, acc);
+  } else if (rank < b.na_end) {
+    float p[AABB_W];
+    load_row(b.aabb + (size_t)(rank - b.ns) * AABB_W, p);
+    aabb_row<1, F32>(p, q, acc);
+  } else if (rank < b.total) {
+    float p[OBB_W];
+    load_row(b.obb + (size_t)(rank - b.na_end) * OBB_W, p);
+    obb_row<1, F32>(p, q, acc);
+  }
+  return acc[0];
+}
+
+// One walk of the tree for one (ray, set), with no upper t: every node
+// whose widened box the ray meets at some t >= 0 is entered, the left
+// child first. A pending right child is one bit of `pend`, at its depth,
+// so the walk keeps no stack: the deepest pending bit names the next node,
+// the right sibling of the current node's ancestor at that depth. Keeps in
+// (rk, tm) the CHORD_LIST least ranks above lo whose term is not zero,
+// ascending (INT_MAX and +0 past them); returns whether it dropped one
+// more. COUNT adds the nodes entered (leaves included) to nodes and the
+// rows tested to tests.
+template <bool COUNT>
+__device__ __forceinline__ bool walk_terms(const Bvh& b, const NodeRay& nr,
+                                           const RaySets<1, F32>& q, int lo,
+                                           int (&rk)[CHORD_LIST],
+                                           float (&tm)[CHORD_LIST],
+                                           int& nodes, int& tests) {
+#pragma unroll
+  for (int i = 0; i < CHORD_LIST; ++i) {
+    rk[i] = 0x7fffffff;
+    tm[i] = 0.0f;
+  }
+  bool dropped = false;
+  const int inner = b.leaves - 1;
+  unsigned pend = 0;
+  int node = 0, depth = 0;
+  while (true) {
+    if (node < inner) {
+      if (COUNT) ++nodes;
+      float4 c0, c1, c2;
+      record(b, node + 1, c0, c1, c2);
+      float ta, tb;
+      const bool ea =
+          box_enter(nr, c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, INFINITY, ta);
+      const bool eb =
+          box_enter(nr, c1.z, c1.w, c2.x, c2.y, c2.z, c2.w, INFINITY, tb);
+      if (ea | eb) {
+        ++depth;
+        pend |= (unsigned)(ea & eb) << depth;
+        node = 2 * node + (ea ? 1 : 2);
+        continue;
+      }
+    } else {
+      if (COUNT) ++nodes;
+      const int rank = __ldg(b.slot + node - inner);
+      if (rank > lo) {
+        if (COUNT) ++tests;
+        const float t = rank_term(b, rank, q);
+        if (t != 0.0f) {  // a NaN too
+          // Insert by rank; the largest falls off the end.
+          int cr = rank;
+          float ct = t;
+#pragma unroll
+          for (int i = 0; i < CHORD_LIST; ++i) {
+            const bool sw = cr < rk[i];
+            const int r0 = rk[i];
+            const float t0 = tm[i];
+            rk[i] = sw ? cr : r0;
+            tm[i] = sw ? ct : t0;
+            cr = sw ? r0 : cr;
+            ct = sw ? t0 : ct;
+          }
+          dropped |= cr != 0x7fffffff;
+        }
+      }
+    }
+    if (pend == 0) break;
+    const int l = 31 - __clz(pend);
+    pend ^= 1u << l;
+    node = (node + 1) >> (depth - l);
+    depth = l;
+  }
+  return dropped;
+}
+
+// B3 through the tree, one thread per (ray, set): warp w takes set w % S
+// of rays order[32 (w / S)] .. order[32 (w / S) + 31], so a block's
+// warps share their rays' origins, and in the Morton order of the origins
+// (ops/cuda/fused.py::ray_order) a warp's walks toward one target share
+// most of their nodes. A (ray, set) adds its crossings' terms in rank
+// order, the tiled kernel's order; where a walk dropped a crossing it
+// walks again for the ranks above the last it added. COUNT (the
+// diagnostic) writes visits[4 (r S + s) ..] the nodes entered, the rows
+// tested, the terms added and the walks after the first.
+template <int S, bool COUNT>
+__global__ void __launch_bounds__(CHORD_BVH_BLOCK)
+multi_chord_kernel(const float* __restrict__ o, const float* __restrict__ dirs,
+                   int R, Skips skips, Bvh bvh,
+                   const long long* __restrict__ order,
+                   float* __restrict__ out, int* __restrict__ visits) {
+  const int w = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int s = w % S;
+  const int i = (w / S) * 32 + threadIdx.x % 32;
+  if (i >= R) return;
+  const int r = (int)order[i];
+  Skips one;
+  one.v[0] = skips.v[s];
+  const RaySets<1, F32> q(o, dirs + (size_t)3 * s * R, R, r, true, one);
+  float acc = 0.0f;
+  int nodes = 0, tests = 0, terms = 0, walks = 0;
+  NodeRay nr;
+  if (node_ray(bvh, q.ox, q.oy, q.oz, q.ix[0], q.iy[0], q.iz[0], INFINITY,
+               nr)) {
+    int lo = -1;
+    bool more = true;
+    while (more) {
+      int rk[CHORD_LIST];
+      float tm[CHORD_LIST];
+      more = walk_terms<COUNT>(bvh, nr, q, lo, rk, tm, nodes, tests);
+#pragma unroll
+      for (int i = 0; i < CHORD_LIST; ++i) {
+        acc = acc + tm[i];
+        if (COUNT) terms += rk[i] != 0x7fffffff;
+      }
+      lo = rk[CHORD_LIST - 1];
+      ++walks;
+    }
+  }
+  out[(size_t)r * S + s] = acc;
+  if (COUNT) {
+    int* v = visits + 4 * ((size_t)r * S + s);
+    v[0] = nodes;
+    v[1] = tests;
+    v[2] = terms;
+    v[3] = max(walks - 1, 0);
   }
 }
 
@@ -420,4 +617,58 @@ extern "C" int multi_chord_bf16(const float* o, const float* dirs, int R,
                                 float* out, void* stream) {
   return launch_sets<BF16>(o, dirs, R, S, skips, sph, ns, aabb, na, obb, no,
                            G, K, out, stream);
+}
+
+template <int S>
+static cudaError_t launch_tree(const float* o, const float* dirs, int R,
+                               const Skips& sk, const Bvh& bvh,
+                               const long long* order, float* out,
+                               int* visits, cudaStream_t stream) {
+  const long long threads = (long long)((R + 31) / 32) * 32 * S;
+  const long long blocks = (threads + CHORD_BVH_BLOCK - 1) / CHORD_BVH_BLOCK;
+  if (threads > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (visits != nullptr) {
+    multi_chord_kernel<S, true><<<(unsigned)blocks, CHORD_BVH_BLOCK, 0,
+                                  stream>>>(o, dirs, R, sk, bvh, order, out,
+                                            visits);
+  } else {
+    multi_chord_kernel<S, false><<<(unsigned)blocks, CHORD_BVH_BLOCK, 0,
+                                   stream>>>(o, dirs, R, sk, bvh, order, out,
+                                             nullptr);
+  }
+  return cudaGetLastError();
+}
+
+#define LAUNCH_TREE(N)                                                  \
+  case N:                                                               \
+    err = launch_tree<N>(o, dirs, R, sk, bvh, order, out, visits,       \
+                         (cudaStream_t)stream);                         \
+    break;
+
+// The tree path (float32): out [R, S], dirs [S, R, 3], over the tree of
+// ops/cuda/kernels.py::closest_bvh (records rec [leaves, BVH_REC], slots
+// [leaves]) and the unpadded type tables it ranks; order [R] the rays in
+// the order the threads take them; visits [R, S, 4] or null: non-null
+// runs the diagnostic.
+extern "C" int multi_chord_bvh(const float* o, const float* dirs, int R,
+                               int S, const int* skips, const float* rec,
+                               const int* slot, int leaves, const float* sph,
+                               int ns, const float* aabb, int na,
+                               const float* obb, int no,
+                               const long long* order, float* out,
+                               int* visits, void* stream) {
+  if (S < 1 || S > MAX_SETS || leaves < 1) return (int)cudaErrorInvalidValue;
+  if (R == 0) RETURN_LAST_ERROR;
+  Skips sk;
+  for (int s = 0; s < MAX_SETS; ++s) sk.v[s] = s < S ? skips[s] : 0;
+  const Bvh bvh{reinterpret_cast<const float4*>(rec), slot, leaves, sph,
+                aabb, obb, ns, ns + na, ns + na + no};
+  cudaError_t err = cudaSuccess;
+  switch (S) {
+    LAUNCH_TREE(1) LAUNCH_TREE(2) LAUNCH_TREE(3) LAUNCH_TREE(4)
+    LAUNCH_TREE(5) LAUNCH_TREE(6) LAUNCH_TREE(7) LAUNCH_TREE(8)
+    LAUNCH_TREE(9) LAUNCH_TREE(10) LAUNCH_TREE(11) LAUNCH_TREE(12)
+    LAUNCH_TREE(13) LAUNCH_TREE(14) LAUNCH_TREE(15) LAUNCH_TREE(16)
+  }
+  return (int)err;
 }

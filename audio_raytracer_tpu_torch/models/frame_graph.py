@@ -73,8 +73,8 @@ Tensor = torch.Tensor
 
 
 def launch_counters() -> list[tuple[object, str]]:
-    """(wrapper, attribute) of every launch count of B1-B9, B1's tree path
-    (``launches_bvh``) among them."""
+    """(wrapper, attribute) of every launch count of B1-B9, B1's and B3's
+    tree paths (``launches_bvh``) among them."""
     wrappers = (K.run_closest_hit, F.run_multi_any_hit, F.run_multi_chord,
                 F.run_multi_chord_dens_bwd, F.run_multi_chord_bwd,
                 K.run_any_hit, K.run_chord_loss, K.run_chord_loss_bwd,

@@ -35,7 +35,7 @@ BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 SOURCES = ("closest_hit", "multi_any_hit", "multi_chord",
            "multi_chord_dens_bwd", "multi_chord_bwd", "any_hit", "calibrate",
            "spans")
-HEADERS = ("fields.cuh", "chord.cuh")
+HEADERS = ("fields.cuh", "chord.cuh", "bvh.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -164,7 +164,9 @@ _SIGNATURES = {
         "multi_any_hit_occupancy": [_I, _P, _P]},
     "multi_chord": {
         "multi_chord": _MULTI_CHORD,
-        "multi_chord_bf16": _MULTI_CHORD},
+        "multi_chord_bf16": _MULTI_CHORD,
+        "multi_chord_bvh": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _I,
+                            _P, _I, _P, _P, _P, _P]},
     "multi_chord_dens_bwd": {
         "multi_chord_dens_bwd": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
                                  _P, _P, _P, _P],

@@ -38,9 +38,11 @@ from audio_raytracer_tpu_torch.ops.cuda.kernels import (
     box_terms,
     check_compute_dtype,
     check_operands,
+    closest_bvh,
     count_launch,
     ids,
     mat_rotate,
+    morton_codes,
     occlusion_tables,
     on_cpu,
     ray_cols,
@@ -52,6 +54,7 @@ from audio_raytracer_tpu_torch.ops.cuda.kernels import (
     stream_of,
     table_args,
     table_ptr,
+    takes_bvh,
 )
 
 Tensor = torch.Tensor
@@ -328,37 +331,137 @@ def launch_multi_chord(lib, fields: Fields, o: Tensor, stacked: Tensor,
     build.check("multi_chord", err)
 
 
+# B3's float32 path walks B1's tree (csrc/multi_chord.cu, the tree
+# kernel) where B1 does (``takes_bvh``) and the rays number at least this
+# many, and keeps the shapes ``chord_splits`` picks below it: the
+# crossover measured on an H100 (700 W) on the bake scene (4,096 rows, 8
+# sets; PERF.md). The tree is the one B1 walks, built at every refill, so
+# the rule counts no build; the tree path's cost beside its kernel is the
+# rays' Morton order (``ray_order``), some 20 small launches. Device ms,
+# the tree path against the chosen shape: 0.072 / 0.011 at 1 ray (one
+# thread a set walks on one SM), 0.380 / 0.278 at 4,096, 0.423 / 0.527 at
+# 8,192, 0.487 / 1.026 at 16,384, 0.854 / 4.005 at 65,536 and 6.76 /
+# 59.40 at 1,048,576. An eager call's host clock adds the order's
+# launches, and there the tree wins from 16,384 rays (0.84 against 1.07
+# ms; 1.17 against 0.58 at 8,192). The order itself pays only from about
+# 65,536 rays: below that the walk in the rays' own order is faster
+# (device ms 0.474 against 0.487 at 16,384; event ms 0.376 against 1.171
+# at 8,192), and it beats the tiles from 8,192 rays (0.324 against 0.527
+# device ms). So between 8,192 and 65,536 rays this one rule is not the
+# fastest choice; no traffic of the benchmark calls B3 there.
+CHORD_BVH_MIN_RAYS = 16384
+
+
+def takes_chord_bvh(fields: Fields, R: int,
+                    compute_dtype=torch.float32) -> bool:
+    """Does B3 walk B1's tree for R rays over these tables in this tier? A
+    rule on the shapes alone, so it waits for nothing."""
+    return takes_bvh(fields, compute_dtype) and R >= CHORD_BVH_MIN_RAYS
+
+
+def ray_order(fields: Fields, o: Tensor) -> Tensor:
+    """[R] int64: the rays in the Morton order of their origins over the
+    root box of ``closest_bvh(fields)``. B3's tree kernel hands a warp 32
+    rays in this order, whose walks toward one target share most of their
+    nodes (in the rays' own order a warp's 32 walks part at once)."""
+    rec = closest_bvh(fields)[0]
+    return torch.sort(morton_codes(o, rec[0, :3], rec[0, 3:6])).indices
+
+
+def launch_chord_bvh(lib, fields: Fields, o: Tensor, stacked: Tensor,
+                     skips, out: Tensor, order: Tensor,
+                     visits: Tensor | None = None) -> None:
+    """One launch of B3's tree kernel for the sets of ``stacked`` [S, R,
+    3] (S <= MAX_SETS) into ``out`` [R, S] over ``closest_bvh(fields)``,
+    the rays taken in ``order`` ([R] int64, ``ray_order``); ``visits``
+    [R, S, 4] int32 runs the diagnostic. Counts no launch."""
+    rec, slots, leaves = closest_bvh(fields)
+    dev = o.device
+    check_operands(dev, order, dtypes=(torch.int64,))
+    keep, skips_ptr = skips_arg(skips)
+    err = lib.multi_chord_bvh(
+        o.data_ptr(), stacked.data_ptr(), o.shape[0], stacked.shape[0],
+        skips_ptr, table_ptr(rec, dev), slots.data_ptr(), leaves,
+        *table_args(fields, dev), order.data_ptr(), out.data_ptr(),
+        None if visits is None else visits.data_ptr(),
+        stream_of(dev))
+    build.check("multi_chord_bvh", err)
+
+
+def _chord_groups(o: Tensor, dirs, skips, launch, visits: bool = False):
+    """B3 over the groups of at most MAX_SETS sets (``set_groups``):
+    ``launch(stacked, skips, out, vis)`` once a group, with ``out`` [R, n]
+    float32 and ``vis`` [R, n, 4] int32 where ``visits`` (else None).
+    Returns (out [R, S], visits [R, S, 4] or None)."""
+    dev, R = o.device, o.shape[0]
+    outs, vis = [], []
+    for g in set_groups(len(dirs)):
+        stacked = _stack_dirs(dirs[g])
+        check_operands(dev, stacked)
+        n = g.stop - g.start
+        outs.append(torch.empty((R, n), device=dev))
+        vis.append(torch.empty((R, n, 4), dtype=torch.int32, device=dev)
+                   if visits else None)
+        launch(stacked, skips[g], outs[-1], vis[-1])
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out, (torch.cat(vis, dim=1) if visits else None)
+
+
 def run_multi_chord(fields: Fields, o: Tensor, dirs, skips,
                     compute_dtype=torch.float32) -> Tensor:
     """B3: permeation chord x density sums along the unbounded rays of S
     target sets sharing the origins o [R, 3]. dirs: S normalized [R, 3];
     skips: S target ids. Returns [R, S] float32. One launch per group of
-    at most MAX_SETS sets, each in the shape ``chord_splits`` picks.
+    at most MAX_SETS sets: where ``takes_chord_bvh`` holds, of the tree
+    kernel (also counted in ``launches_bvh``; the bits of the one thread
+    a ray shape), else in the shape ``chord_splits`` picks.
     ``compute_dtype``: torch.float32, or torch.bfloat16 for the bfloat16
     tier (``launches_bf16``; the sums stay float32)."""
     bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
     if on_cpu(o):
         return multi_chord_plain(fields, o, dirs, skips, compute_dtype)
-    lib = build.load("multi_chord")
-    dev = o.device
-    R, S = o.shape[0], len(dirs)
+    lib, dev = build.load("multi_chord"), o.device
+    R = o.shape[0]
     check_operands(dev, o)
+    tree = takes_chord_bvh(fields, R, compute_dtype)
     splits = chord_splits(R, fields.total, sm_count(dev))
-    parts = []
-    for g in set_groups(S):
-        stacked = _stack_dirs(dirs[g])
-        check_operands(dev, stacked)
-        out = torch.empty((R, g.stop - g.start), device=dev)
-        launch_multi_chord(lib, fields, o, stacked, skips[g], out, splits,
-                           bf16)
+    order = ray_order(fields, o) if tree else None
+
+    def launch(stacked, sk, out, _):
+        if tree:
+            launch_chord_bvh(lib, fields, o, stacked, sk, out, order)
+        else:
+            launch_multi_chord(lib, fields, o, stacked, sk, out, splits,
+                               bf16)
         if R:
             count_launch(run_multi_chord, bf16)
-        parts.append(out)
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+            run_multi_chord.launches_bvh += int(tree)
+
+    return _chord_groups(o, dirs, skips, launch)[0]
 
 
 run_multi_chord.launches = 0
 run_multi_chord.launches_bf16 = 0
+run_multi_chord.launches_bvh = 0
+
+
+def multi_chord_bvh_visits(fields: Fields, o: Tensor, dirs, skips):
+    """The tree kernel's diagnostic, on the card only, whatever the shapes,
+    and never on a step's path: (out [R, S] as ``run_multi_chord``,
+    visits [R, S, 4] int32: per (ray, set) the nodes entered, leaves
+    included, the rows tested, the nonzero terms added and the walks
+    after the first, one for each time its list of CHORD_LIST crossings
+    overflowed). Counted in no launch count."""
+    if on_cpu(o):
+        raise ValueError("B3's tree diagnostic runs on the card")
+    lib = build.load("multi_chord")
+    check_operands(o.device, o)
+    order = ray_order(fields, o)
+    return _chord_groups(
+        o, dirs, skips,
+        lambda stacked, sk, out, vis: launch_chord_bvh(
+            lib, fields, o, stacked, sk, out, order, vis),
+        visits=True)
 
 
 # ---------------------------------------------------------------------------

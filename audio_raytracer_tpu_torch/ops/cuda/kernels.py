@@ -460,6 +460,18 @@ def _cross(a: Tensor, b: Tensor) -> Tensor:
                         a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
 
 
+def morton_codes(x: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
+    """[n] int64 30-bit Morton codes of the points x [n, 3] over the box
+    (lo, hi), 10 bits an axis (csrc/closest_hit.cu::spread10); a point
+    outside the box is clamped to it, a NaN coordinate reads 0."""
+    q = ((x - lo) / (hi - lo) * 1024.0).nan_to_num(0.0, 0.0, 0.0)
+    q = q.clamp(0.0, 1023.0).long()
+    for mul, mask in ((0x00010001, 0xFF0000FF), (0x00000101, 0x0F00F00F),
+                      (0x00000011, 0xC30C30C3), (0x00000005, 0x49249249)):
+        q = (q * mul) & mask
+    return (q[:, 0] << 2) | (q[:, 1] << 1) | q[:, 2]
+
+
 def bvh_boxes(fields: Fields):
     """Plain version of the build's first kernel (csrc/closest_hit.cu::
     bvh_boxes_kernel): (box [P, 6] (lo xyz, hi xyz) in scan order, codes
@@ -494,13 +506,7 @@ def bvh_boxes(fields: Fields):
     ok = act & torch.isfinite(c).all(-1, keepdim=True)
     cmin = torch.where(ok, c, INF).amin(0)
     cmax = torch.where(ok, c, -INF).amax(0)
-    q = ((c - cmin) / (cmax - cmin) * 1024.0).nan_to_num(0.0, 0.0, 0.0)
-    q = q.clamp(0.0, 1023.0).long()
-    for mul, mask in ((0x00010001, 0xFF0000FF), (0x00000101, 0x0F00F00F),
-                      (0x00000011, 0xC30C30C3), (0x00000005, 0x49249249)):
-        q = (q * mul) & mask
-    codes = torch.where(ok[:, 0], (q[:, 0] << 2) | (q[:, 1] << 1) | q[:, 2],
-                        1 << 30)
+    codes = torch.where(ok[:, 0], morton_codes(c, cmin, cmax), 1 << 30)
     # w: the margin, or the OBBs' where that is larger.
     w = torch.full((), BVH_MARGIN, device=sph.device)
     if fields.counts[2]:

@@ -436,8 +436,9 @@ class TestWrappers:
         # More sets than one launch takes: the wrappers launch once per
         # group, each with its own slice of the skips, and join the
         # outputs; every B3 group of one call takes the same launch shape
-        # (G, K). A stand-in library records the launches; the tables
-        # have the headline scene's 4,096 rows, the card 132 SMs.
+        # (G, K), or the tree kernel where ``takes_chord_bvh`` holds. A
+        # stand-in library records the launches; the tables have the
+        # headline scene's 4,096 rows, the card 132 SMs.
         calls = []
 
         def read_skips(ptr, n):
@@ -453,8 +454,15 @@ class TestWrappers:
                 calls.append(("B3", R, S, read_skips(skips, S), G, K_))
                 return 0
 
+            def multi_chord_bvh(self, o, dirs, R, S, skips, *rest):
+                calls.append(("B3", R, S, read_skips(skips, S), "tree"))
+                return 0
+
         monkeypatch.setattr(build, "load", lambda name: Lib())
         monkeypatch.setattr(F, "table_args", lambda fields, dev: [0] * 6)
+        monkeypatch.setattr(F, "closest_bvh", lambda fields: (
+            torch.zeros((4096, K.BVH_REC), device="meta"),
+            torch.zeros((4096,), dtype=torch.int32, device="meta"), 4096))
         monkeypatch.setattr(F, "occlusion_args",
                             lambda fields, skips, dev, dtype: [0] * 9)
         monkeypatch.setattr(F, "stream_of", lambda dev: 0)
@@ -471,19 +479,22 @@ class TestWrappers:
             init = torch.zeros((R, S), dtype=torch.bool, device="meta")
             calls.clear()
             before = (F.run_multi_any_hit.launches,
-                      F.run_multi_chord.launches)
+                      F.run_multi_chord.launches,
+                      F.run_multi_chord.launches_bvh)
             occ = F.run_multi_any_hit(fields, o, [o] * S, lim, skips, init)
             loss = F.run_multi_chord(fields, o, [o] * (S - 1), skips[1:])
             assert occ.shape == (R, S) and loss.shape == (R, S - 1)
             assert (F.run_multi_any_hit.launches - before[0],
-                    F.run_multi_chord.launches - before[1]) == (2, 2)
+                    F.run_multi_chord.launches - before[1],
+                    F.run_multi_chord.launches_bvh - before[2]) == \
+                (2, 2, 2 * F.takes_chord_bvh(fields, R))
             splits[R] = calls[2][4:]
             assert calls == [("B2", R, 16, skips[:16]),
                              ("B2", R, 4, skips[16:]),
                              ("B3", R, 16, skips[1:17], *splits[R]),
                              ("B3", R, 3, skips[17:], *splits[R])]
         assert splits[5] == (1, 16)  # a cluster of 16 blocks a ray
-        assert splits[1 << 20] == (F.BLOCK, 1)
+        assert splits[1 << 20] == ("tree",)
 
     def test_plain_versions_do_not_count_launches(self, backends, rays):
         o, d = rays
